@@ -4,15 +4,24 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-It builds every CUDA kernel of the port from the sources in the checkout,
-holds each kernel against its plain PyTorch version on the card, drives the
-port's main path (model-backed compile-time serving through
-``TuningService.tune_batch``) at the default model and solver widths, and
-checks the results.  Every phase raises on failure, so the script exits 0
-only when all of them passed.  The last line of standard output is one JSON
-object, ``{"ok": true, "device": {...}}``; the line before it lists each
-kernel with its launches on the main path, its error against the plain
-version and its times.
+It builds every CUDA kernel of the port from the sources in the checkout
+(one ``nvcc`` per kernel, all started together), holds each kernel against
+its plain PyTorch version on the card, and drives the port's paths at the
+default model and solver widths:
+
+* compile-time serving, ``TuningService.tune_batch`` (hmooc3 aggregation);
+* the runtime (AQE) half, ``RuntimeSession.run_batch``, seeded by the
+  compile-time results;
+* HMOOC2, the same service with ``HMOOCConfig(dag_method="hmooc2")``.
+
+Each path runs with every kernel's launch count set to 0 just before it
+and read just after; the script fails if a kernel of a path was not
+launched there.  It checks the results of every path and the card's
+answers against the host's on small inputs.  Every phase raises on failure,
+so the script exits 0 only when all of them passed.  The last line of
+standard output is one JSON object, ``{"ok": true, "device": {...}}``; the
+line before it lists each kernel with its launches, its error against the
+plain version and its times.
 
 Without a CUDA card, or without the rest of the repository beside it, the
 script fails before it prints any result.  It imports nothing of JAX.
@@ -23,6 +32,7 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -34,24 +44,45 @@ sys.path.insert(0, str(ROOT / "src"))
 from repro_torch.core.models.perf_model import ModelConfig, PerfModel  # noqa: E402
 from repro_torch.core.moo import hmooc  # noqa: E402
 from repro_torch.core.moo.hmooc import HMOOCConfig  # noqa: E402
+from repro_torch.core.tuning import runtime as runtime_core  # noqa: E402
 from repro_torch.core.tuning.spark_space import (  # noqa: E402
     theta_c_space, theta_p_space, theta_s_space)
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import fused_solve as fused_pkg  # noqa: E402
+from repro_torch.kernels import ws_reduce as ws_pkg  # noqa: E402
+from repro_torch.kernels.fused_solve import ops as fused_ops  # noqa: E402
+from repro_torch.kernels.fused_solve.ref import (  # noqa: E402
+    fused_ws_front_ref, local_mask_ref)
 from repro_torch.kernels.pareto_filter import ops as pareto_ops  # noqa: E402
 from repro_torch.kernels.pareto_filter.ref import pareto_mask_ref  # noqa: E402
+from repro_torch.kernels.ws_reduce import ops as ws_ops  # noqa: E402
+from repro_torch.kernels.ws_reduce.ref import ws_reduce_ref  # noqa: E402
+from repro_torch.queryengine.aqe import LQPRequest, QSRequest  # noqa: E402
+from repro_torch.queryengine.simulator import plan_joins  # noqa: E402
 from repro_torch.queryengine.workloads import serving_stream  # noqa: E402
-from repro_torch.serve import TuningService  # noqa: E402
+from repro_torch.serve import RuntimeSession, TuningService  # noqa: E402
+from repro_torch.serve import runtime as runtime_mod  # noqa: E402
 from repro_torch.serve import service as service_mod  # noqa: E402
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense, 700 W).
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 
-# Every kernel of the main path: name, wrapper module, TPU kernel it replaces.
+# Every kernel of the port: name, wrapper module, TPU kernel it replaces,
+# and the paths that must launch it.
 KERNELS = [
     {"name": "pareto_filter", "ops": pareto_ops,
      "source": "src/repro_torch/kernels/pareto_filter/csrc/pareto_filter.cu",
-     "replaces": "src/repro/kernels/pareto_filter/kernel.py:54"},
+     "replaces": "src/repro/kernels/pareto_filter/kernel.py:54",
+     "paths": ("compile", "runtime")},
+    {"name": "ws_reduce", "ops": ws_ops,
+     "source": "src/repro_torch/kernels/ws_reduce/csrc/ws_reduce.cu",
+     "replaces": "src/repro/kernels/ws_reduce/kernel.py:35",
+     "paths": ("runtime",)},
+    {"name": "fused_solve", "ops": fused_ops,
+     "source": "src/repro_torch/kernels/fused_solve/csrc/fused_solve.cu",
+     "replaces": "src/repro/kernels/fused_solve/ops.py:79",
+     "paths": ("hmooc2",)},
 ]
 MAIN_PATH_SHAPE = (256, 2)          # one Algorithm 1 bank: 256-row pool, k=2
 # (n, k, layout): "uniform" rows are mostly dominated within the first tile;
@@ -62,6 +93,19 @@ CHECK_SHAPES = ([MAIN_PATH_SHAPE + ("uniform",), MAIN_PATH_SHAPE + ("front",)]
                    for k in (2, 3, 8)]
                 + [(4096, k, "front") for k in (2, 3, 8)])
 WEIGHTS = (0.9, 0.1)
+# ws_reduce (m, B, k, nw): the kernel tests' shapes, the largest runtime
+# pick (one round of 32 sets of 64 pool rows + 2 seeds, one weight row, if
+# no row were dominated), and HMOOC2's picks (128 candidates x 8 subQs,
+# bank cap 48, 11 weights).  The largest pick the runtime path really made
+# is checked and timed after it.
+WS_RUNTIME_SHAPE = (32, 66, 2, 1)
+WS_SHAPES = [(1, 8, 2, 3), (4, 130, 2, 11), (3, 48, 3, 33), (2, 256, 4, 128),
+             WS_RUNTIME_SHAPE, (1024, 48, 2, 11)]
+# fused_solve (N, m, B, k, nw): the reference's four parity cases and its
+# padding-invalid case.  The largest bank of the HMOOC2 batch is checked
+# and timed after that batch.
+FUSED_SHAPES = [(1, 1, 2, 2, 3), (3, 2, 8, 2, 11), (7, 3, 16, 2, 6),
+                (33, 5, 4, 2, 4), (5, 3, 4, 2, 6)]
 
 
 def log(msg: str) -> None:
@@ -75,20 +119,38 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def reset_launches() -> None:
+    for k in KERNELS:
+        k["ops"].LAUNCHES = 0
+
+
+def read_launches() -> dict:
+    return {k["name"]: k["ops"].LAUNCHES for k in KERNELS}
+
+
+def require_launches(path: str, launches: dict) -> None:
+    for k in KERNELS:
+        if path in k["paths"] and launches[k["name"]] <= 0:
+            raise AssertionError(f"kernel {k['name']} was not launched on "
+                                 f"the {path} path")
+
+
 # ---------------------------------------------------------------------------
 # Phase 1: build
 # ---------------------------------------------------------------------------
 
 def build_all() -> float:
-    """Compile every kernel library from the checkout's sources."""
+    """Compile every kernel library from the checkout's sources, one nvcc
+    per library, all started together."""
     t0 = time.perf_counter()
-    for k in KERNELS:
-        _build.load(k["name"], k["ops"].SOURCES)
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        list(pool.map(lambda k: _build.load(k["name"], k["ops"].SOURCES),
+                      KERNELS))
     return time.perf_counter() - t0
 
 
 # ---------------------------------------------------------------------------
-# Phase 2: kernel against its plain version, on the card
+# Phase 2: kernels against their plain versions, on the card
 # ---------------------------------------------------------------------------
 
 def pareto_case(n: int, k: int, seed: int, device, layout="uniform"):
@@ -136,21 +198,26 @@ def device_us(fn, name: str, iters: int = 200):
     return total / count if count and total > 0 else None
 
 
-def pareto_bound_ms(F: torch.Tensor, valid: torch.Tensor, mask: torch.Tensor):
-    """Least time for the card: bytes moved vs compares this data needs.
+def fmt_us(us) -> str:
+    return "not measured" if us is None else f"{us:.3f} us"
 
-    Bytes: F read once (f32), valid read once, the mask written once.
-    Compares: 2k per pair test; a surviving row must be tested against
-    every valid row, a dominated one needs only its dominator.
-    """
-    n, k = F.shape
-    n_bytes = n * k * 4 + n + n
-    V = int(valid.sum())
-    S = int(mask.sum())
-    ops = 2 * k * (S * V + (V - S))
+
+def bound_ms(n_bytes: float, ops: float):
+    """The least time for the card: bytes over HBM rate vs operations over
+    the float32 rate, whichever is larger, and which one it is."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / FP32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def pareto_bound_ms(F: torch.Tensor, valid: torch.Tensor, mask: torch.Tensor):
+    """Bytes: F read once (f32), valid read once, the mask written once.
+    Compares: 2k per pair test; a surviving row must be tested against
+    every valid row, a dominated one needs only its dominator."""
+    n, k = F.shape
+    V = int(valid.sum())
+    S = int(mask.sum())
+    return bound_ms(n * k * 4 + n + n, 2 * k * (S * V + (V - S)))
 
 
 def check_pareto_filter(device) -> dict:
@@ -183,8 +250,7 @@ def check_pareto_filter(device) -> dict:
         timings[(n, k, layout)] = (ms, plain, bound, by)
         log(f"[kernels] pareto_filter n={n} k={k} ({layout}): "
             f"{ms:.6f} ms per call "
-            f"(events), kernel alone "
-            f"{'not measured' if dev is None else f'{dev:.3f} us'} "
+            f"(events), kernel alone {fmt_us(dev)} "
             f"(profiler), plain {plain:.6f} ms, bound {bound:.9f} ms ({by}), "
             f"survivors {int(mask.sum())}/{n}")
     ms, plain, bound, by = timings[MAIN_PATH_SHAPE + ("uniform",)]
@@ -192,8 +258,177 @@ def check_pareto_filter(device) -> dict:
             "bound_ms": bound, "bound_by": by, "library_ms": None}
 
 
+def ws_case(m: int, B: int, k: int, nw: int, seed: int, device):
+    """Uniform f32 banks with two padded (+inf) slots each; from the third
+    bank on, bank 0 holds padding alone and the last bank an exact score
+    tie at its minimum (rows 1 and 3 both zero)."""
+    rng = np.random.default_rng(seed)
+    F = rng.random((m, B, k)).astype(np.float32)
+    F[:, -2:] = np.inf
+    if m > 2:
+        F[0] = np.inf
+        F[-1, 1] = F[-1, 3] = 0.0
+    W = rng.random((nw, k)).astype(np.float32)
+    return torch.from_numpy(F).to(device), torch.from_numpy(W).to(device)
+
+
+def measure_ws_reduce(F: torch.Tensor, W: torch.Tensor, label: str) -> dict:
+    """Indices exact, values within rtol 1e-5 of the plain version; the
+    kernel's time per call (events) and alone (profiler), the plain
+    version's, one einsum + min library call's, and the bound."""
+    m, B, k = F.shape
+    nw = W.shape[0]
+    vals, idx = ws_ops.ws_reduce(F, W)
+    torch.cuda.synchronize()
+    F32 = torch.nan_to_num(F.to(torch.float32), posinf=1e30)
+    W32 = W.to(torch.float32)
+    rv, ri = ws_reduce_ref(F32, W32)
+    if not torch.equal(idx, ri):
+        raise AssertionError(f"ws_reduce indices differ from the plain "
+                             f"version ({label})")
+    if not torch.allclose(vals, rv, rtol=1e-5, atol=0.0):
+        raise AssertionError(f"ws_reduce values differ from the plain "
+                             f"version ({label})")
+    err = float((vals - rv).abs().max())
+    ms = time_cuda(lambda: ws_ops.ws_reduce(F, W), 2000)
+    plain = time_cuda(lambda: ws_reduce_ref(F32, W32), 200)
+    lib = time_cuda(lambda: torch.min(
+        torch.einsum("wk,mbk->wmb", W32, F32), dim=-1), 200)
+    dev = device_us(lambda: ws_ops.ws_reduce(F, W), "ws_reduce_kernel")
+    bound, by = bound_ms(m * B * k * 4 + nw * k * 4 + nw * m * 8,
+                         2 * k * nw * m * B)
+    log(f"[kernels] ws_reduce (m, B, k, nw)={(m, B, k, nw)} ({label}) == "
+        f"plain version (indices exact, max |dv| {err:.3g}): {ms:.6f} ms "
+        f"per call (events), kernel alone {fmt_us(dev)} (profiler), plain "
+        f"{plain:.6f} ms, library einsum+min {lib:.6f} ms, bound "
+        f"{bound:.9f} ms ({by})")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain,
+            "bound_ms": bound, "bound_by": by, "library_ms": lib,
+            "kernel_us": dev, "shape": [m, B, k, nw]}
+
+
+def check_ws_reduce(device) -> float:
+    """Every WS_SHAPES case, padding-only banks and exact ties included."""
+    worst = 0.0
+    for i, (m, B, k, nw) in enumerate(WS_SHAPES):
+        F, W = ws_case(m, B, k, nw, seed=200 + i, device=device)
+        worst = max(worst, measure_ws_reduce(F, W, "synthetic")
+                    ["max_abs_err"])
+        if m > 2:
+            _, idx = ws_ops.ws_reduce(F, W)
+            if not ((idx[:, 0] == 0).all() and (idx[:, -1] == 1).all()):
+                raise AssertionError("ws_reduce: padding or tie rule broken")
+    log(f"[kernels] ws_reduce == plain version on {len(WS_SHAPES)} cases "
+        "(padding-only banks and exact ties included)")
+    return worst
+
+
+def fused_case(N: int, m: int, B: int, k: int, nw: int, seed: int):
+    """The reference's parity-case layout: uniform banks, the last slot of
+    every bank and one more of the first padded (+inf), per-candidate
+    normalized scores; from N > 2, m > 1 on a subQ of candidate 2 holds
+    padding alone (that candidate can never be valid)."""
+    rng = np.random.default_rng(seed)
+    Fb = rng.random((N, m, B, k))
+    if B > 2:
+        Fb[:, :, -1] = np.inf
+        Fb[0, 0, -2] = np.inf
+    if N > 2 and m > 1:
+        Fb[2, 1] = np.inf
+    W = np.stack([np.linspace(0.05, 0.95, nw),
+                  1.0 - np.linspace(0.05, 0.95, nw)], -1)
+    return hmooc._hmooc2_normalize(Fb), Fb, W
+
+
+def fused_plain(Fn, Fb, W, device):
+    """The plain version on the card, on the wrapper's own inputs."""
+    Fn32 = np.nan_to_num(np.asarray(Fn, np.float32), posinf=1e30)
+    return [t.cpu().numpy() for t in fused_ws_front_ref(
+        *(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+          for a in (Fn32, np.asarray(Fb, np.float64),
+                    np.asarray(W, np.float32))))]
+
+
+def check_fused_case(Fn, Fb, W, device, label: str) -> float:
+    jj, P_all, keep = fused_ops.fused_ws_front(Fn, Fb, W, device=device)
+    jr, Pr, kr = fused_plain(Fn, Fb, W, device)
+    if not (np.array_equal(jj, jr) and np.array_equal(keep, kr)):
+        raise AssertionError(f"fused_solve picks or mask differ from the "
+                             f"plain version ({label})")
+    fin = np.isfinite(Pr)
+    if not (np.array_equal(fin, np.isfinite(P_all))
+            and np.allclose(P_all[fin], Pr[fin], rtol=1e-12, atol=0.0)):
+        raise AssertionError(f"fused_solve sums differ from the plain "
+                             f"version ({label})")
+    if not np.isfinite(P_all[keep]).all():
+        raise AssertionError(f"fused_solve kept an invalid point ({label})")
+    return float(np.abs(P_all[fin] - Pr[fin]).max()) if fin.any() else 0.0
+
+
+def check_fused_solve(device) -> float:
+    """Every FUSED_SHAPES case, checked and timed."""
+    worst = 0.0
+    for i, shape in enumerate(FUSED_SHAPES):
+        worst = max(worst, measure_fused_solve(
+            *fused_case(*shape, seed=300 + i), device,
+            "synthetic")["max_abs_err"])
+    log(f"[kernels] fused_solve == plain version on {len(FUSED_SHAPES)} "
+        "cases (picks and mask exact, sums within rtol 1e-12)")
+    return worst
+
+
+def fused_bound_ms(Fn, W, jj, keep, valid):
+    """Bytes: Fn read once (f32), W once, only the picked raw rows of the
+    bank (f64, distinct (candidate, subQ, row) triples), and jj, P_all and
+    keep written once.  Operations: 2k per weighted score and its compare,
+    the float64 sums, 2k per local pair test among each candidate's valid
+    picks, and the global filter's pair tests as for pareto_filter."""
+    N, m, B, k = Fn.shape
+    nw = W.shape[0]
+    rows = (np.arange(N)[:, None, None] * m
+            + np.arange(m)[None, None, :]) * B + jj
+    n_bytes = (Fn.size * 4 + W.size * 4 + np.unique(rows).size * k * 8
+               + jj.size * 4 + N * nw * k * 8 + N * nw)
+    V = int(valid.sum())
+    S = int(keep.sum())
+    ops = (2 * k * nw * N * m * B + N * nw * m * k
+           + 2 * k * nw * nw * N + 2 * k * (S * V + (V - S)))
+    return bound_ms(n_bytes, ops)
+
+
+def measure_fused_solve(Fn, Fb, W, device, label: str) -> dict:
+    """Check one case, then time it: the wrapper per call (what a caller
+    pays: copies in, both kernels, copies out), each kernel alone
+    (profiler), the plain version on the card, and the bound."""
+    err = check_fused_case(Fn, Fb, W, device, label)
+    jj, P_all, keep = fused_ops.fused_ws_front(Fn, Fb, W, device=device)
+    G = np.asarray(Fb)[np.arange(Fb.shape[0])[:, None, None],
+                       np.arange(Fb.shape[1])[None, None, :], jj]
+    ok = np.isfinite(G).all(axis=(2, 3))
+    valid = ok & local_mask_ref(torch.from_numpy(P_all),
+                                torch.from_numpy(ok)).numpy()
+    ms = time_cuda(lambda: fused_ops.fused_ws_front(Fn, Fb, W,
+                                                    device=device), 200)
+    plain = time_cuda(lambda: fused_plain(Fn, Fb, W, device), 50)
+    call = (lambda: fused_ops.fused_ws_front(Fn, Fb, W, device=device))
+    dev = device_us(call, "fused_ws_front_kernel")
+    dev_k1 = device_us(call, "pareto_filter_kernel")
+    bound, by = fused_bound_ms(Fn, W, jj, keep, valid)
+    log(f"[kernels] fused_solve (N, m, B, k, nw)="
+        f"{Fn.shape + (W.shape[0],)} ({label}) == plain version "
+        f"(max |dP| {err:.3g}): {ms:.6f} ms per call (events, numpy in and "
+        f"out), fused kernel alone {fmt_us(dev)}, its pareto_filter launch "
+        f"{fmt_us(dev_k1)} (profiler), plain {plain:.6f} ms, bound "
+        f"{bound:.9f} ms ({by}), kept {int(keep.sum())}/{keep.size}; "
+        "library: none (no single PyTorch call makes the picks, the gather, "
+        "the sums and both dominance masks)")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain,
+            "bound_ms": bound, "bound_by": by, "library_ms": None,
+            "kernel_us": dev, "pareto_us": dev_k1}
+
+
 # ---------------------------------------------------------------------------
-# Phase 3: the slice's main path
+# Phase 3: the port's paths
 # ---------------------------------------------------------------------------
 
 class Timers:
@@ -239,26 +474,33 @@ def check_theta_bounds(queries, results) -> None:
                 raise AssertionError(f"{q.qid}: θ outside its range")
 
 
-def warm_up(device, cfg: HMOOCConfig) -> float:
+def warm_up(device, cfg: HMOOCConfig):
     """Pay the card's first-use costs (cuBLAS set-up, lazy loading of each
     kernel) before anything is timed: one batch at the main path's widths
-    through a model and a service of its own, on queries outside the
-    measured streams, so none of its caches serve a timed batch."""
+    through models and services of their own, on queries outside the
+    measured streams, so none of their caches serve a timed batch.  The
+    compile-time batch then seeds one runtime batch."""
     model = PerfModel(ModelConfig("subq", 19), seed=1, device=device)
+    model_qs = PerfModel(ModelConfig("qs", 10), seed=2, device=device)
     queries = serving_stream("tpch", 8, seed=1, query_seed=1)
     t0 = time.perf_counter()
-    TuningService(model=model, cfg=cfg, device=device).tune_batch(queries,
-                                                                  WEIGHTS)
+    cts = TuningService(model=model, cfg=cfg, device=device).tune_batch(
+        queries, WEIGHTS)
     torch.cuda.synchronize()
-    return time.perf_counter() - t0
+    t1 = time.perf_counter()
+    RuntimeSession(model_subq=model, model_qs=model_qs, weights=WEIGHTS,
+                   device=device).run_batch(queries, cts)
+    torch.cuda.synchronize()
+    return t1 - t0, time.perf_counter() - t1
 
 
 def run_main_path(device, n_queries: int = 32,
                   cfg: HMOOCConfig = HMOOCConfig()) -> dict:
     """Three batches through the port's service at the default widths:
     TPC-H, the same TPC-H stream again (warm caches), then TPC-DS."""
-    log(f"[warmup] first-use batch of 8 queries: "
-        f"{warm_up(device, cfg):.6f} s (not timed below)")
+    compile_s, runtime_s = warm_up(device, cfg)
+    log(f"[warmup] first-use batch of 8 queries: {compile_s:.6f} s "
+        f"compile-time, {runtime_s:.6f} s runtime (not timed below)")
     model = PerfModel(ModelConfig("subq", 19), seed=0, device=device)
     if any(p.device.type != device.type for p in model.net.parameters()):
         raise AssertionError(f"model parameters are not on {device}")
@@ -273,9 +515,8 @@ def run_main_path(device, n_queries: int = 32,
     hmooc.pareto_mask_fast = timers.wrap("pareto_masks", orig[1])
     model.predict_rows = timers.wrap("predict_rows", orig[2])
     model.embed_many = timers.wrap("embed_many", orig[3])
-    for k in KERNELS:
-        k["ops"].LAUNCHES = 0
-    per_batch = []
+    reset_launches()
+    per_batch, outputs = [], {}
     try:
         for name, queries in batches:
             torch.cuda.synchronize()
@@ -289,6 +530,7 @@ def run_main_path(device, n_queries: int = 32,
             wall = time.perf_counter() - t0
             check_results(queries, results)
             check_theta_bounds(queries, results)
+            outputs[name] = (queries, results)
             s = svc.last_batch
             row = {"batch": name, "queries": len(queries),
                    "qps": len(queries) / wall, "wall_s": wall,
@@ -304,18 +546,186 @@ def run_main_path(device, n_queries: int = 32,
     finally:
         (service_mod.fused_stage_eval, hmooc.pareto_mask_fast) = orig[:2]
         del model.predict_rows, model.embed_many
-    launches = {k["name"]: k["ops"].LAUNCHES for k in KERNELS}
-    for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"kernel {name} was not launched on the "
-                                 "main path")
-    log(f"[slice] cache {svc.cache.stats()}")
-    return {"launches": launches, "batches": per_batch, "model": model}
+    launches = read_launches()
+    require_launches("compile", launches)
+    log(f"[slice] cache {svc.cache.stats()}; launches {launches}")
+    return {"launches": launches, "batches": per_batch, "model": model,
+            "outputs": outputs}
+
+
+def check_runtime_results(queries, cts, results) -> None:
+    """Every query planned and realized: θ_eff of the right shape, finite
+    and inside its ranges, a finite simulated outcome, request counts
+    within their totals, and no planned join demoted (AQE can only upgrade
+    a join algorithm)."""
+    ps, ss = theta_p_space(), theta_s_space()
+    for q, ct, r in zip(queries, cts, results):
+        m = q.n_subqs
+        if r.theta_p_eff.shape != (m, 9) or r.theta_s_eff.shape != (m, 2):
+            raise AssertionError(f"{q.qid}: bad θ_eff shapes")
+        for space, raw in ((ps, r.theta_p_eff), (ss, r.theta_s_eff)):
+            lo = np.array([p.lo for p in space.params])
+            hi = np.array([p.hi for p in space.params])
+            if not (np.isfinite(raw).all() and (raw >= lo).all()
+                    and (raw <= hi).all()):
+                raise AssertionError(f"{q.qid}: θ_eff outside its range")
+        for f in ("ana_latency", "actual_latency", "io_gb", "cost"):
+            v = getattr(r.sim, f)
+            if v.shape != (1,) or not np.isfinite(v).all():
+                raise AssertionError(f"{q.qid}: bad simulated {f}")
+        if not 0 <= r.requests_sent <= r.requests_total:
+            raise AssertionError(f"{q.qid}: request counts out of range")
+        planned = plan_joins(q, np.tile(ct.theta_p0, (m, 1))[None],
+                             from_estimates=True)[0]
+        for sq in q.subqs:
+            if sq.kind == "join" and \
+                    r.final_join[sq.sq_id] < planned[sq.sq_id]:
+                raise AssertionError(f"{q.qid}: a planned join was demoted")
+
+
+def run_runtime_path(device, model_subq, compiled: dict) -> dict:
+    """``RuntimeSession.run_batch`` at the default widths (64 candidates,
+    structural γ, pruning on) on the TPC-H and TPC-DS batches, seeded by
+    the compile-time results of the timed batches."""
+    model_qs = PerfModel(ModelConfig("qs", 10), seed=1, device=device)
+    sess = RuntimeSession(model_subq=model_subq, model_qs=model_qs,
+                          weights=WEIGHTS, device=device)
+    timers = Timers()
+    shapes = []
+    largest = []
+
+    def ws_reduce_seen(F, W):
+        shapes.append(tuple(F.shape) + (W.shape[0],))
+        if not largest or F.numel() > largest[0][0].numel():
+            largest[:] = [(F.clone(), W.clone())]
+        return ws_orig(F, W)
+
+    orig = (runtime_mod.score_requests, runtime_mod.weighted_pick_batch,
+            runtime_core.pareto_mask_fast, ws_pkg.ws_reduce)
+    ws_orig = orig[3]
+    runtime_mod.score_requests = timers.wrap("score_requests", orig[0])
+    runtime_mod.weighted_pick_batch = timers.wrap("weighted_pick_batch",
+                                                  orig[1])
+    runtime_core.pareto_mask_fast = timers.wrap("pareto_masks", orig[2])
+    ws_pkg.ws_reduce = timers.wrap("ws_reduce", ws_reduce_seen)
+    for m in (model_subq, model_qs):      # inside score_requests
+        m.embed = timers.wrap("embed", m.embed)
+        m.predict = timers.wrap("predict", m.predict)
+    reset_launches()
+    per_batch = []
+    try:
+        for name in ("tpch", "tpcds"):
+            queries, cts = compiled[name]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            timers.t.clear()
+            shapes.clear()
+            l0 = read_launches()
+            t0 = time.perf_counter()
+            results = sess.run_batch(queries, cts)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            check_runtime_results(queries, cts, results)
+            s = sess.last_batch
+            l1 = read_launches()
+            row = {"batch": name, "queries": len(queries), "wall_s": wall,
+                   "requests_sent": s.requests_sent,
+                   "requests_total": s.requests_total,
+                   "rounds": s.rounds, "fused_calls": s.fused_calls,
+                   "requests_per_s": s.requests_sent / wall,
+                   "pareto_launches": l1["pareto_filter"]
+                   - l0["pareto_filter"],
+                   "ws_reduce_launches": l1["ws_reduce"] - l0["ws_reduce"],
+                   "ws_reduce_max_shape": ([int(x) for x in
+                                            np.max(shapes, axis=0)]
+                                           if shapes else None),
+                   "max_memory_bytes": torch.cuda.max_memory_allocated(),
+                   "host_s": {k: round(v, 6) for k, v in timers.t.items()},
+                   "mean_actual_latency_s": float(np.mean(
+                       [r.sim.actual_latency[0] for r in results]))}
+            per_batch.append(row)
+            log(f"[runtime] {json.dumps(row)}")
+    finally:
+        (runtime_mod.score_requests, runtime_mod.weighted_pick_batch,
+         runtime_core.pareto_mask_fast, ws_pkg.ws_reduce) = orig
+        for m in (model_subq, model_qs):
+            del m.embed, m.predict
+    launches = read_launches()
+    require_launches("runtime", launches)
+    log(f"[runtime] pools {sess.pool_cache.stats()}; launches {launches}")
+    return {"launches": launches, "batches": per_batch, "model_qs": model_qs,
+            "ws_inputs": largest[0]}
+
+
+def run_hmooc2_path(device, model, n_queries: int = 32) -> dict:
+    """One TPC-H batch through a service at the default widths with HMOOC2
+    aggregation; keeps the largest bank the fused kernel was handed."""
+    svc = TuningService(model=model, cfg=HMOOCConfig(dag_method="hmooc2"),
+                        device=device)
+    queries = serving_stream("tpch", n_queries, seed=0)
+    routes = {"fused": 0, "float64": 0}
+    banks = []
+
+    def fused_route(*a):
+        routes["fused"] += 1
+        return fused_orig(*a)
+
+    def float64_route(*a):
+        routes["float64"] += 1
+        return f64_orig(*a)
+
+    def record(Fn, F_bank, W, **kw):
+        if not banks or F_bank.size > banks[0][1].size:
+            banks[:] = [(Fn, F_bank, W)]
+        return fused_ws_orig(Fn, F_bank, W, **kw)
+
+    fused_orig, f64_orig = hmooc._hmooc2_all_fused, hmooc._hmooc2_all
+    fused_ws_orig = fused_pkg.fused_ws_front
+    hmooc._hmooc2_all_fused = fused_route
+    hmooc._hmooc2_all = float64_route
+    fused_pkg.fused_ws_front = record
+    reset_launches()
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        results = svc.tune_batch(queries, WEIGHTS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        hmooc._hmooc2_all_fused, hmooc._hmooc2_all = fused_orig, f64_orig
+        fused_pkg.fused_ws_front = fused_ws_orig
+    launches = read_launches()
+    check_results(queries, results)
+    check_theta_bounds(queries, results)
+    s = svc.last_batch
+    row = {"batch": "tpch hmooc2", "queries": len(queries),
+           "qps": len(queries) / wall, "wall_s": wall,
+           "solved": s.n_solved, "deduped": s.n_deduped,
+           "fused_route": routes["fused"],
+           "float64_route_tie_guard": routes["float64"],
+           "launches": launches,
+           "max_memory_bytes": torch.cuda.max_memory_allocated(),
+           "mean_solve_s": float(np.mean([r.solve_time for r in results]))}
+    log(f"[hmooc2] {json.dumps(row)}")
+    if routes["float64"]:
+        log(f"[hmooc2] {routes['float64']} of {s.n_solved} aggregations "
+            "took the float64 route: their banks hold values that are "
+            "distinct in float64 and equal in float32")
+    require_launches("hmooc2", launches)
+    return {"launches": launches, "row": row, "bank": banks[0]}
 
 
 # ---------------------------------------------------------------------------
-# Phase 4: the card's answers against the host's, on a small input
+# Phase 4: the card's answers against the host's, on small inputs
 # ---------------------------------------------------------------------------
+
+def host_copy(model_cuda) -> PerfModel:
+    return PerfModel(model_cuda.cfg,
+                     params={k: v.cpu() for k, v in
+                             model_cuda.params.items()},
+                     target_stats=model_cuda.target_stats, device="cpu")
+
 
 def check_against_host(model_cuda, device) -> None:
     """The main path's model on the card and the same weights on the host
@@ -325,14 +735,9 @@ def check_against_host(model_cuda, device) -> None:
     cfg = HMOOCConfig(n_c_init=16, n_clusters=4, n_p_pool=48, n_c_enrich=12,
                       max_bank=12, seed=3)
     queries = serving_stream("tpch", 6, seed=5)
-    host_model = PerfModel(model_cuda.cfg,
-                           params={k: v.cpu() for k, v in
-                                   model_cuda.params.items()},
-                           target_stats=model_cuda.target_stats,
-                           device="cpu")
     card = TuningService(model=model_cuda, cfg=cfg,
                          device=device).tune_batch(queries, WEIGHTS)
-    host = TuningService(model=host_model, cfg=cfg,
+    host = TuningService(model=host_copy(model_cuda), cfg=cfg,
                          device="cpu").tune_batch(queries, WEIGHTS)
     worst = 0.0
     for q, a, b in zip(queries, card, host):
@@ -347,25 +752,82 @@ def check_against_host(model_cuda, device) -> None:
         f"of the host's on {len(queries)} queries")
 
 
+def check_runtime_against_host(model_subq, model_qs, device) -> None:
+    """The runtime models' ``score_requests`` objectives on the card within
+    rtol 1e-4 of the same weights on the host, for every (subQ, decision)
+    request of a small TPC-H stream."""
+    queries = serving_stream("tpch", 4, seed=5)
+    cts = TuningService(cfg=HMOOCConfig(n_c_init=16, n_clusters=4,
+                                        n_p_pool=48, n_c_enrich=12,
+                                        max_bank=12, seed=3),
+                        device="cpu").tune_batch(queries, WEIGHTS)
+    sides = {}
+    for label, dev, msub, mqs in (
+            ("card", device, model_subq, model_qs),
+            ("host", "cpu", host_copy(model_subq), host_copy(model_qs))):
+        reqs = []
+        for q, ct in zip(queries, cts):
+            b = runtime_core.RuntimeOptimizerBackend(
+                q, ct.theta_c, seed_theta_p=ct.theta_p_sub,
+                seed_theta_s=ct.theta_s_sub, model_subq=msub, model_qs=mqs,
+                device=dev)
+            for sq in q.subqs:
+                for r in (LQPRequest(q, sq, ct.theta_c, ct.theta_p0),
+                          QSRequest(q, sq, ct.theta_c, ct.theta_s0)):
+                    reqs.append(b.request_for(r)[0])
+        sides[label] = runtime_core.score_requests(reqs)
+    worst = 0.0
+    for a, b in zip(sides["card"], sides["host"]):
+        if a.shape != b.shape or not np.isfinite(a).all():
+            raise AssertionError("runtime objectives: bad shape or values")
+        worst = max(worst, float(np.max(np.abs(a - b) / np.abs(b))))
+    if worst > 1e-4:
+        raise AssertionError(f"runtime objectives differ by relative "
+                             f"{worst:.3g}")
+    log(f"[check] runtime objectives on the card within relative "
+        f"{worst:.3g} of the host's on {len(sides['card'])} requests")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
+    t_start = time.perf_counter()
     card = card_line()
     log(f"[card] {card}; torch {torch.__version__}; CUDA {torch.version.cuda}")
-    log(f"[build] kernels built in {build_all():.2f} s")
+    log(f"[build] kernels built in {build_all():.2f} s (in parallel)")
     entries = {"pareto_filter": check_pareto_filter(device)}
-    main_path = run_main_path(device)
-    check_against_host(main_path["model"], device)
+    ws_err = check_ws_reduce(device)
+    fused_err = check_fused_solve(device)
+    compile_path = run_main_path(device)
+    runtime_path = run_runtime_path(device, compile_path["model"],
+                                    compile_path["outputs"])
+    hmooc2_path = run_hmooc2_path(device, compile_path["model"])
+    entries["ws_reduce"] = measure_ws_reduce(*runtime_path["ws_inputs"],
+                                             "largest runtime pick")
+    entries["ws_reduce"]["max_abs_err"] = max(
+        ws_err, entries["ws_reduce"]["max_abs_err"])
+    entries["fused_solve"] = measure_fused_solve(*hmooc2_path["bank"], device,
+                                                 "largest HMOOC2 bank")
+    entries["fused_solve"]["max_abs_err"] = max(
+        fused_err, entries["fused_solve"]["max_abs_err"])
+    check_against_host(compile_path["model"], device)
+    check_runtime_against_host(compile_path["model"],
+                               runtime_path["model_qs"], device)
+    paths = {"compile": compile_path["launches"],
+             "runtime": runtime_path["launches"],
+             "hmooc2": hmooc2_path["launches"]}
     kernels = []
     for k in KERNELS:
-        e = entries[k["name"]]
+        e = dict(entries[k["name"]])
+        by_path = {p: paths[p][k["name"]] for p in paths}
         kernels.append({"name": k["name"], "route": "cuda",
                         "source": k["source"], "replaces": k["replaces"],
-                        "launches": main_path["launches"][k["name"]],
-                        **e})
+                        "launches": sum(by_path.values()),
+                        "launches_by_path": by_path, **e})
+    log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

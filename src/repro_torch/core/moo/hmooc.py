@@ -23,9 +23,10 @@ analytic simulator or synthetic functions.
 
 Hot paths are array-level: every stage_eval call covers a whole
 representative set or candidate population at once (m calls per phase
-instead of C·m), and dominance masks route through the CUDA
-``pareto_filter`` kernel on the card (``pareto_mask_fast``).  HMOOC2's
-weighted-sum picks run as a float64 numpy einsum.
+instead of C·m), dominance masks route through the CUDA ``pareto_filter``
+kernel on the card (``pareto_mask_fast``), and HMOOC2 routes its
+per-weight bank argmin to the ``ws_reduce`` kernel and its whole
+aggregation to the ``fused_solve`` kernel above a score-volume threshold.
 
 Device placement is explicit: the public entry points take ``device``
 (``None`` = the CUDA card, resolved per call) and carry it down to every
@@ -39,6 +40,7 @@ repeated-template traffic (see ``repro_torch.serve``).
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -48,7 +50,7 @@ import torch
 
 from ...device import resolve_device
 from .clustering import kmeans_fit
-from .pareto import pareto_mask_fast, pareto_mask_np
+from .pareto import _f32_tie_hazard, pareto_mask_fast, pareto_mask_np
 
 __all__ = ["HMOOCConfig", "HMOOCResult", "EffectiveSet", "hmooc_solve",
            "HmoocPlan", "subq_tuning", "build_candidates", "dag_aggregate",
@@ -56,10 +58,22 @@ __all__ = ["HMOOCConfig", "HMOOCResult", "EffectiveSet", "hmooc_solve",
 
 StageEval = Callable[[int, np.ndarray, np.ndarray], np.ndarray]
 
-# HMOOC2's weighted-sum picks and its fused aggregation have no kernel in
-# this package yet (the ws_reduce / fused_solve kernels are still to be
-# ported), so REPRO_WS_KERNEL_MIN_SCORES is not read: HMOOC2 always takes
-# the float64 numpy route.
+# Score-matrix volume (N·m·B·nw) at or above which HMOOC2 uses the
+# ws_reduce / fused_solve kernels.  None = resolve from the env var / device
+# per call (tests monkeypatch this directly).
+_WS_MIN_SCORES = None
+
+
+def _ws_min_scores(device: torch.device) -> int:
+    if _WS_MIN_SCORES is not None:
+        return _WS_MIN_SCORES
+    # Read per call, never cached (see pareto._default_kernel_min_n).  On
+    # the card every nonempty score volume goes to the kernels until the
+    # H100's own crossover is measured; on the host the float64 numpy route
+    # stays the default (the CPU wrappers would only run the plain version).
+    return int(os.environ.get(
+        "REPRO_WS_KERNEL_MIN_SCORES",
+        "0" if device.type == "cuda" else str(1 << 60)))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -389,11 +403,31 @@ def _hmooc1_fixed_c(Fb: np.ndarray, Ib: np.ndarray, device: torch.device
     return nodes[0]
 
 
-def _ws_pick(Fn: np.ndarray, W: np.ndarray) -> np.ndarray:
+def _ws_pick(Fn: np.ndarray, W: np.ndarray, device: torch.device
+             ) -> np.ndarray:
     """argmin_b  W[w] · Fn[c, i, b]  →  (nw, N, m) int.
 
-    A float64 numpy einsum (the reference's numpy route, bit-for-bit).
+    Routes through the ws_reduce kernel (float32 scores) at or above the
+    score-volume threshold; otherwise a float64 numpy einsum that
+    reproduces the reference arithmetic bit-for-bit.
+
+    Routing is tie-tolerant, like ``pareto_mask_fast``: when any objective
+    column of ``Fn`` holds values that are distinct in float64 but collide
+    after the kernel's float32 cast, the weighted argmin itself could flip
+    under the cast, so such inputs take the float64 einsum regardless of
+    volume.  (Conservative input-level check — it catches the cast-
+    collision class; sums that tie only after f32 accumulation remain the
+    kernel regime's documented f32 semantics.)
     """
+    N, m, B, k = Fn.shape
+    nw = W.shape[0]
+    if N * m * B * nw >= _ws_min_scores(device) \
+            and not _f32_tie_hazard(Fn.reshape(-1, k)):
+        from ...kernels.ws_reduce import ws_reduce  # lazy: kernel layer
+        _, idx = ws_reduce(torch.from_numpy(
+            np.ascontiguousarray(Fn.reshape(N * m, B, k))).to(device),
+            torch.from_numpy(np.ascontiguousarray(W)).to(device))
+        return idx.cpu().numpy().astype(int).reshape(nw, N, m)
     scores = np.einsum("wk,cibk->wcib", W, Fn)           # (nw, N, m, B)
     return np.argmin(scores, axis=-1)
 
@@ -430,7 +464,7 @@ def _hmooc2_all(F_bank: np.ndarray, idx_bank: np.ndarray, n_weights: int,
     assert k == 2
     W = _ws_weights(n_weights)
     Fn = _hmooc2_normalize(F_bank)
-    j = _ws_pick(Fn, W)                                  # (nw, N, m)
+    j = _ws_pick(Fn, W, device)                          # (nw, N, m)
     jj = np.transpose(j, (1, 0, 2))                      # (N, nw, m)
     cc = np.arange(N)[:, None, None]
     ii = np.arange(m)[None, None, :]
@@ -455,6 +489,34 @@ def _hmooc2_fixed_c(Fb: np.ndarray, Ib: np.ndarray, n_weights: int,
                     device: torch.device) -> Tuple[np.ndarray, np.ndarray]:
     """WS-over-functions aggregation under one θc (Alg. 4)."""
     return _hmooc2_all(Fb[None], Ib[None], n_weights, device)[0]
+
+
+def _hmooc2_all_fused(Uc: np.ndarray, pool: np.ndarray, F_bank: np.ndarray,
+                      idx_bank: np.ndarray, n_weights: int,
+                      device: torch.device
+                      ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Kernel-regime HMOOC2: the whole aggregation in one fused launch.
+
+    The ``fused_solve`` kernel makes the weighted-sum picks, the
+    objective-sum gather and the per-candidate dominance mask, and the
+    ``pareto_filter`` kernel the final global filter, instead of bouncing
+    intermediate banks between host and device per candidate.  Returns the
+    already-globally-filtered (front, theta_c, theta_ps) in the same row
+    order the per-candidate numpy route produces (candidate-major, weight
+    ascending), with its same f32 score/compare semantics.
+    """
+    from ...kernels.fused_solve import fused_ws_front  # lazy: kernel layer
+    N, m, B, k = F_bank.shape
+    assert k == 2
+    W = _ws_weights(n_weights)
+    Fn = _hmooc2_normalize(F_bank)
+    jj, P_all, keep = fused_ws_front(Fn, F_bank, W, device=device)
+    cc = np.arange(N)[:, None, None]
+    ii = np.arange(m)[None, None, :]
+    S = idx_bank[cc, ii, jj]                             # (N, nw, m)
+    keep_c, keep_w = np.nonzero(keep)
+    theta_ps = pool[np.maximum(S[keep_c, keep_w], 0)]    # (q, m, d_ps)
+    return P_all[keep_c, keep_w], Uc[keep_c], theta_ps
 
 
 def _hmooc3_extremes(F_bank: np.ndarray, idx_bank: np.ndarray
@@ -512,6 +574,16 @@ def dag_aggregate(
 
     fronts, tcs, sels = [], [], []
     if method == "hmooc2":
+        # Tie-tolerant routing (same contract as `pareto_mask_fast`): the
+        # fused kernel casts the bank to f32 for both the ws picks and the
+        # global Pareto filter, so banks whose f64-distinct objective values
+        # collide as f32 must take the per-candidate f64 numpy route even in
+        # the kernel volume regime.  Input-level check on F_bank covers Fn
+        # too (Fn is an affine renormalization of F_bank).
+        if N * m * B * n_ws_weights >= _ws_min_scores(device) \
+                and not _f32_tie_hazard(F_bank.reshape(-1, k)):
+            return _hmooc2_all_fused(Uc, pool, F_bank, idx_bank,
+                                     n_ws_weights, device)
         per_c: Sequence[Tuple[np.ndarray, np.ndarray]] = \
             _hmooc2_all(F_bank, idx_bank, n_ws_weights, device)
     elif method == "hmooc1":

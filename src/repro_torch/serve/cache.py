@@ -1,10 +1,12 @@
-"""Serving-layer cache of the compile-time half.
+"""Shared serving-layer caches (compile-time and runtime halves).
 
 :class:`EffectiveSetCache` — template-keyed Algorithm 1 artifacts for the
-compile-time service.  It is long-lived by design: one instance serves
-every micro-batch of a :class:`~repro_torch.serve.service.TuningService`,
-which is where the amortization comes from.  (The runtime half's candidate
-pool cache comes with the runtime slice.)
+compile-time service.  :class:`CandidatePoolCache` — runtime θp/θs LHS
+candidate pools shared across every concurrent query of a session.  Both
+are long-lived by design: one instance serves every micro-batch of a
+:class:`~repro_torch.serve.service.TuningService` or every query of a
+:class:`~repro_torch.serve.runtime.RuntimeSession`, which is where the
+amortization comes from.
 
 Algorithm 1's candidate sampling (LHS θc set, clustering, crossover
 enrichment, θp⊕θs pool) depends only on the parameter spaces and the
@@ -41,8 +43,8 @@ import numpy as np
 from ..core.moo.hmooc import EffectiveSet, HMOOCConfig
 from ..queryengine.plan import Query
 
-__all__ = ["EffectiveSetCache", "query_fingerprint", "template_key",
-           "model_fingerprint"]
+__all__ = ["EffectiveSetCache", "CandidatePoolCache", "query_fingerprint",
+           "template_key", "model_fingerprint"]
 
 SNAPSHOT_FORMAT = "repro-cache-snapshot"
 SNAPSHOT_VERSION = 1
@@ -117,8 +119,8 @@ def _freeze_eset(es: EffectiveSet) -> None:
 
     Unpickling always yields writable arrays, and a restored entry's
     arrays are handed out by reference to every future cache hit — the
-    shared-mutable-array hazard: a caller mutating one hit would poison
-    every later hit, so restores re-freeze them ``writeable=False``.
+    same shared-mutable-array hazard the pool cache guards against, so
+    restores apply the same ``writeable=False`` re-freeze.
     """
     for a in (es.Uc, es.labels, es.reps, es.pool):
         a.setflags(write=False)
@@ -251,4 +253,79 @@ class EffectiveSetCache:
             n += 1
         while len(self._entries) > self.max_entries:
             self._entries.popitem(last=False)
+        return n
+
+
+class CandidatePoolCache:
+    """Shared runtime candidate pools keyed by (seed, n_candidates, scope).
+
+    The pools are query-independent LHS draws
+    (:func:`~repro_torch.core.tuning.runtime.sample_candidate_pools`), so
+    every concurrent query in a session reuses one draw: the identical
+    arrays a standalone per-query backend samples for the same seed.  Entries above
+    ``max_entries`` are LRU-evicted (an evicted pool is simply redrawn on
+    the next request, bit-identically — eviction never changes results).
+
+    ``scope`` is the multi-tenant isolation dimension: a streaming server
+    passes the tenant id, so one tenant's entries are never handed to
+    another even under capacity pressure or per-tenant seed overrides.
+    Pools for the same ``(seed, n_candidates)`` are bit-identical across
+    scopes (the draw ignores the scope), so scoping costs only duplicate
+    storage, never changed results.
+    """
+
+    def __init__(self, max_entries: int = 64):
+        self.max_entries = max_entries
+        self._pools: "OrderedDict[Tuple, Tuple[np.ndarray, np.ndarray]]" = OrderedDict()
+        self.hits = 0
+        self.misses = 0
+
+    def __len__(self) -> int:
+        return len(self._pools)
+
+    def get(self, seed: int, n_candidates: int, scope=None
+            ) -> Tuple[np.ndarray, np.ndarray]:
+        from ..core.tuning.runtime import sample_candidate_pools  # lazy cycle
+        key = (seed, n_candidates, scope)
+        pools = self._pools.get(key)
+        if pools is None:
+            self.misses += 1
+            pools = sample_candidate_pools(seed, n_candidates)
+            # The cached arrays are handed out by reference to every later
+            # hit: freeze them so an in-place mutation by one caller raises
+            # instead of silently poisoning all other queries and tenants
+            # sharing the pool.
+            for a in pools:
+                a.setflags(write=False)
+            self._pools[key] = pools
+        else:
+            self.hits += 1
+        self._pools.move_to_end(key)
+        while len(self._pools) > self.max_entries:
+            self._pools.popitem(last=False)
+        return pools
+
+    def stats(self) -> dict:
+        return {"entries": len(self._pools), "hits": self.hits,
+                "misses": self.misses}
+
+    def snapshot(self) -> bytes:
+        """Opaque blob of every pool entry (pools are pure LHS draws from
+        their key — always content-addressed, nothing is excluded)."""
+        return pack_snapshot("pools", list(self._pools.items()))
+
+    def restore(self, blob: bytes) -> int:
+        """Merge a :meth:`snapshot` blob; returns entries inserted.
+        Restored arrays are re-frozen (see :meth:`get`); existing entries
+        win under the same key and ``max_entries`` is enforced."""
+        n = 0
+        for k, v in unpack_snapshot(blob, "pools"):
+            if k in self._pools:
+                continue
+            for a in v:
+                a.setflags(write=False)
+            self._pools[k] = v
+            n += 1
+        while len(self._pools) > self.max_entries:
+            self._pools.popitem(last=False)
         return n

@@ -13,10 +13,14 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.core.moo.hmooc import HMOOCConfig
+from repro_torch.kernels.fused_solve import ops as fused_ops
+from repro_torch.kernels.fused_solve.ref import fused_ws_front_ref
 from repro_torch.kernels.pareto_filter import ops as pareto_ops
 from repro_torch.kernels.pareto_filter.ref import pareto_mask_ref
+from repro_torch.kernels.ws_reduce import ops as ws_ops
+from repro_torch.kernels.ws_reduce.ref import ws_reduce_ref
 from repro_torch.queryengine.workloads import serving_stream
-from repro_torch.serve import TuningService
+from repro_torch.serve import RuntimeSession, TuningService
 
 pytestmark = pytest.mark.cuda
 
@@ -94,3 +98,97 @@ def test_oracle_service_card_equals_host(cuda_device):
         assert a.choice == b.choice
         np.testing.assert_array_equal(a.theta_c, b.theta_c)
         np.testing.assert_array_equal(a.theta_p_sub, b.theta_p_sub)
+
+
+def _ws_case(m, B, k, nw, seed):
+    rng = np.random.default_rng(seed)
+    F = rng.random((m, B, k)).astype(np.float32)
+    F[:, -2:] = np.inf                       # padded bank slots
+    F[0] = np.inf                            # a bank of padding alone
+    if m > 1 and B > 4:
+        F[-1, 3] = F[-1, 1] = 0.0            # an exact tie at the minimum
+    return F, rng.random((nw, k)).astype(np.float32)
+
+
+@pytest.mark.parametrize("m,B,k,nw", [(1, 8, 2, 3), (4, 130, 2, 11),
+                                      (3, 48, 3, 33), (2, 256, 4, 128),
+                                      (32, 66, 2, 1), (1024, 48, 2, 11),
+                                      (5, 40, 8, 5)])
+def test_ws_reduce_kernel_matches_plain_version(cuda_device, m, B, k, nw):
+    F, W = _ws_case(m, B, k, nw, seed=m * 100 + B)
+    Ft = torch.from_numpy(F).to(cuda_device)
+    Wt = torch.from_numpy(W).to(cuda_device)
+    before = ws_ops.LAUNCHES
+    v, i = ws_ops.ws_reduce(Ft, Wt)
+    torch.cuda.synchronize()
+    assert ws_ops.LAUNCHES == before + 1
+    vr, ir = ws_reduce_ref(torch.nan_to_num(Ft, posinf=1e30), Wt)
+    np.testing.assert_array_equal(i.cpu().numpy(), ir.cpu().numpy())
+    np.testing.assert_allclose(v.cpu().numpy(), vr.cpu().numpy(), rtol=1e-5)
+    assert (i[:, 0] == 0).all()
+    if m > 1 and B > 4:
+        assert (i[:, -1] == 1).all()
+
+
+def _fused_case(N, m, B, k, nw, seed):
+    rng = np.random.default_rng(seed)
+    Fb = rng.random((N, m, B, k))
+    if B > 2:
+        Fb[:, :, -1] = np.inf
+        Fb[0, 0, -2] = np.inf
+    if N > 2 and m > 1:
+        Fb[2, 1] = np.inf                    # a subQ with an empty bank
+    finite = np.isfinite(Fb)
+    lo = np.min(np.where(finite, Fb, np.inf), axis=(1, 2), keepdims=True)
+    hi = np.max(np.where(finite, Fb, -np.inf), axis=(1, 2), keepdims=True)
+    Fn = np.where(finite, (Fb - lo) / np.where(hi > lo, hi - lo, 1.0), 1e18)
+    W = (np.stack([np.linspace(0.0, 1.0, nw),
+                   1.0 - np.linspace(0.0, 1.0, nw)], -1) if k == 2
+         else rng.dirichlet(np.ones(k), nw))
+    return Fn, Fb, W
+
+
+@pytest.mark.parametrize("N,m,B,k,nw", [(1, 1, 2, 2, 3), (3, 2, 8, 2, 11),
+                                        (7, 3, 16, 2, 6), (33, 5, 4, 2, 4),
+                                        (5, 3, 4, 2, 6), (128, 12, 48, 2, 11),
+                                        (9, 4, 10, 3, 7)])
+def test_fused_solve_kernel_matches_plain_version(cuda_device, N, m, B, k,
+                                                  nw):
+    Fn, Fb, W = _fused_case(N, m, B, k, nw, seed=N * 1000 + m * 10 + B)
+    before = fused_ops.LAUNCHES, pareto_ops.LAUNCHES
+    jj, P_all, keep = fused_ops.fused_ws_front(Fn, Fb, W, device=cuda_device)
+    assert (fused_ops.LAUNCHES, pareto_ops.LAUNCHES) == \
+        (before[0] + 1, before[1] + 1)
+    Fn32 = np.nan_to_num(Fn.astype(np.float32), posinf=1e30)
+    jr, Pr, kr = fused_ws_front_ref(
+        *(torch.from_numpy(np.ascontiguousarray(a)).to(cuda_device)
+          for a in (Fn32, Fb, W.astype(np.float32))))
+    np.testing.assert_array_equal(jj, jr.cpu().numpy())
+    np.testing.assert_allclose(P_all, Pr.cpu().numpy(), rtol=1e-12)
+    np.testing.assert_array_equal(keep, kr.cpu().numpy())
+    # The card's answer equals the host's plain version too.
+    jh, Ph, kh = fused_ops.fused_ws_front(Fn, Fb, W, device="cpu")
+    np.testing.assert_array_equal(jj, jh)
+    np.testing.assert_array_equal(keep, kh)
+
+
+def test_oracle_runtime_session_card_equals_host(cuda_device):
+    """The runtime path on the card (K1 prefilter and K2 picks in float32,
+    behind the tie-hazard guards) decides exactly as the host's float64
+    numpy routing on a 6-query stream."""
+    cfg = HMOOCConfig(n_c_init=16, n_clusters=4, n_p_pool=48, n_c_enrich=12,
+                      max_bank=12, seed=3)
+    queries = serving_stream("tpch", 6, seed=5)
+    cts = TuningService(cfg=cfg, device="cpu").tune_batch(queries)
+    before = pareto_ops.LAUNCHES, ws_ops.LAUNCHES
+    card = RuntimeSession(device=cuda_device).run_batch(queries, cts)
+    assert pareto_ops.LAUNCHES > before[0] and ws_ops.LAUNCHES > before[1]
+    host = RuntimeSession(device="cpu").run_batch(queries, cts)
+    for a, b in zip(card, host):
+        np.testing.assert_array_equal(a.theta_p_eff, b.theta_p_eff)
+        np.testing.assert_array_equal(a.theta_s_eff, b.theta_s_eff)
+        np.testing.assert_array_equal(a.final_join, b.final_join)
+        assert a.requests_sent == b.requests_sent
+        np.testing.assert_array_equal(a.sim.actual_latency,
+                                      b.sim.actual_latency)
+        np.testing.assert_array_equal(a.sim.cost, b.sim.cost)
