@@ -12,12 +12,18 @@ default model and solver widths:
 * compile-time serving, ``TuningService.tune_batch`` (hmooc3 aggregation);
 * the runtime (AQE) half, ``RuntimeSession.run_batch``, seeded by the
   compile-time results;
-* HMOOC2, the same service with ``HMOOCConfig(dag_method="hmooc2")``.
+* HMOOC2, the same service with ``HMOOCConfig(dag_method="hmooc2")``;
+* dense-LM serving (``lm``): ``glm4-9b`` at full width in bfloat16 with
+  random weights from a seed, one prompt-scoring forward of 4 × 2048 tokens
+  through the flash-attention kernel, then generation through the port's
+  ``make_serve_fns`` (prefill into a KV cache, 31 greedy decode steps).
 
 Each path runs with every kernel's launch count set to 0 just before it
 and read just after; the script fails if a kernel of a path was not
 launched there.  It checks the results of every path and the card's
-answers against the host's on small inputs.  Every phase raises on failure,
+answers against the host's on small inputs (for the LM: the flash route
+against the plain route at 4 layers, and the card against the host at 2
+layers, both at full width in float32).  Every phase raises on failure,
 so the script exits 0 only when all of them passed.  The last line of
 standard output is one JSON object, ``{"ok": true, "device": {...}}``; the
 line before it lists each kernel with its launches, its error against the
@@ -41,6 +47,7 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+from repro_torch.archs.registry import build_model, get_config  # noqa: E402
 from repro_torch.core.models.perf_model import ModelConfig, PerfModel  # noqa: E402
 from repro_torch.core.moo import hmooc  # noqa: E402
 from repro_torch.core.moo.hmooc import HMOOCConfig  # noqa: E402
@@ -48,6 +55,8 @@ from repro_torch.core.tuning import runtime as runtime_core  # noqa: E402
 from repro_torch.core.tuning.spark_space import (  # noqa: E402
     theta_c_space, theta_p_space, theta_s_space)
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
 from repro_torch.kernels import fused_solve as fused_pkg  # noqa: E402
 from repro_torch.kernels import ws_reduce as ws_pkg  # noqa: E402
 from repro_torch.kernels.fused_solve import ops as fused_ops  # noqa: E402
@@ -63,10 +72,12 @@ from repro_torch.queryengine.workloads import serving_stream  # noqa: E402
 from repro_torch.serve import RuntimeSession, TuningService  # noqa: E402
 from repro_torch.serve import runtime as runtime_mod  # noqa: E402
 from repro_torch.serve import service as service_mod  # noqa: E402
+from repro_torch.train.serve import make_serve_fns  # noqa: E402
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense, 700 W).
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12             # tensor cores, dense
 
 # Every kernel of the port: name, wrapper module, TPU kernel it replaces,
 # and the paths that must launch it.
@@ -83,6 +94,11 @@ KERNELS = [
      "source": "src/repro_torch/kernels/fused_solve/csrc/fused_solve.cu",
      "replaces": "src/repro/kernels/fused_solve/ops.py:79",
      "paths": ("hmooc2",)},
+    {"name": "flash_attention", "ops": flash_ops,
+     "source": "src/repro_torch/kernels/flash_attention/csrc/"
+               "flash_attention.cu",
+     "replaces": "src/repro/kernels/flash_attention/kernel.py:86",
+     "paths": ("lm",)},
 ]
 MAIN_PATH_SHAPE = (256, 2)          # one Algorithm 1 bank: 256-row pool, k=2
 # (n, k, layout): "uniform" rows are mostly dominated within the first tile;
@@ -106,6 +122,30 @@ WS_SHAPES = [(1, 8, 2, 3), (4, 130, 2, 11), (3, 48, 3, 33), (2, 256, 4, 128),
 # and timed after that batch.
 FUSED_SHAPES = [(1, 1, 2, 2, 3), (3, 2, 8, 2, 11), (7, 3, 16, 2, 6),
                 (33, 5, 4, 2, 4), (5, 3, 4, 2, 6)]
+# The LM path: 4 requests of 2048 prompt tokens, 32 generated tokens each,
+# in a cache of 2080 slots.
+LM_ARCH = "glm4-9b"
+LM_BATCH, LM_PROMPT, LM_GEN, LM_CAPACITY = 4, 2048, 32, 2080
+# flash_attention (B, Hq, Hkv, Sq, Skv, D, causal, dtype): the reference
+# kernel tests' six float32 shapes and their bfloat16 case, then the LM
+# path's shape (glm4-9b at 4 × 2048 tokens), which is timed for the table.
+FLASH_LM_SHAPE = (LM_BATCH, 32, 2, LM_PROMPT, LM_PROMPT, 128, True,
+                  torch.bfloat16)
+FLASH_SHAPES = [(1, 4, 4, 128, 128, 64, True, torch.float32),
+                (2, 8, 2, 256, 256, 64, True, torch.float32),
+                (1, 4, 1, 100, 100, 128, True, torch.float32),
+                (1, 4, 2, 1, 300, 64, False, torch.float32),
+                (1, 8, 4, 96, 480, 64, True, torch.float32),
+                (2, 2, 2, 64, 64, 128, False, torch.float32),
+                (1, 4, 4, 128, 128, 128, True, torch.bfloat16),
+                FLASH_LM_SHAPE]
+# Stated tolerances: float32 as the reference's kernel test (the online
+# softmax sums in another order than one softmax); 16-bit outputs differ
+# by about one rounding of the output.  The LM checks compare float32
+# logits of magnitude up to about 5 after 2 or 4 layers of float32 sums in
+# other orders (flash against plain, card against host).
+FLASH_ATOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
+LM_F32_ATOL = 5e-4
 
 
 def log(msg: str) -> None:
@@ -168,9 +208,9 @@ def pareto_case(n: int, k: int, seed: int, device, layout="uniform"):
     return (torch.from_numpy(F).to(device), torch.from_numpy(valid).to(device))
 
 
-def time_cuda(fn, iters: int) -> float:
+def time_cuda(fn, iters: int, warm: int = 20) -> float:
     """Milliseconds per call, CUDA events around ``iters`` warm calls."""
-    for _ in range(20):
+    for _ in range(warm):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -198,15 +238,30 @@ def device_us(fn, name: str, iters: int = 200):
     return total / count if count and total > 0 else None
 
 
+def device_busy_ms(fn) -> float:
+    """Milliseconds the card spent in kernels (summed over every kernel of a
+    torch.profiler trace) during one call of ``fn``; set against the call's
+    untraced wall time it gives the card's idle share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3
+
+
 def fmt_us(us) -> str:
     return "not measured" if us is None else f"{us:.3f} us"
 
 
-def bound_ms(n_bytes: float, ops: float):
+def bound_ms(n_bytes: float, ops: float, ops_per_s: float = FP32_OPS_PER_S):
     """The least time for the card: bytes over HBM rate vs operations over
-    the float32 rate, whichever is larger, and which one it is."""
+    the rate of their type (float32 unless given), whichever is larger, and
+    which one it is."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -425,6 +480,81 @@ def measure_fused_solve(Fn, Fb, W, device, label: str) -> dict:
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain,
             "bound_ms": bound, "bound_by": by, "library_ms": None,
             "kernel_us": dev, "pareto_us": dev_k1}
+
+
+def flash_case(B, Hq, Hkv, Sq, Skv, D, dtype, seed: int, device):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(
+        device=device, dtype=dtype)
+        for shape in ((B, Hq, Sq, D), (B, Hkv, Skv, D), (B, Hkv, Skv, D))]
+
+
+def flash_bound_ms(B, Hq, Hkv, Sq, Skv, D, causal, dtype):
+    """Bytes: q, k, v read once, o written once.  Operations: the two
+    products, 2·D each per (query, key) pair that this mask lets through
+    (query t sees keys ≤ t + Skv − Sq when causal), at the tensor-core rate
+    for 16-bit inputs and the float32 rate for float32."""
+    elt = torch.tensor([], dtype=dtype).element_size()
+    t = np.arange(Sq)
+    pairs = (int(np.minimum(Skv, t + Skv - Sq + 1).clip(0).sum()) if causal
+             else Sq * Skv)
+    rate = FP32_OPS_PER_S if dtype == torch.float32 else BF16_OPS_PER_S
+    return bound_ms(elt * D * (2 * B * Hq * Sq + 2 * B * Hkv * Skv),
+                    4 * D * pairs * B * Hq, rate)
+
+
+def sdpa(q, k, v, causal: bool):
+    """The library call for the same function: PyTorch's fused attention,
+    with the causal mask aligned at the ends as the kernel aligns it."""
+    Sq, Skv = q.shape[2], k.shape[2]
+    mask = None
+    if causal and Sq != Skv:
+        qi = torch.arange(Sq, device=q.device)[:, None]
+        mask = torch.arange(Skv, device=q.device)[None, :] <= qi + Skv - Sq
+    return torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, is_causal=causal and mask is None,
+        enable_gqa=q.shape[1] != k.shape[1])
+
+
+def check_flash_attention(device) -> dict:
+    """Every FLASH_SHAPES case against the plain version on the card,
+    within FLASH_ATOL, then timed: the wrapper per call (events), the
+    kernel alone (profiler), the plain version, SDPA, and the bound."""
+    worst, entry = 0.0, None
+    for i, (B, Hq, Hkv, Sq, Skv, D, causal, dtype) in enumerate(FLASH_SHAPES):
+        q, k, v = flash_case(B, Hq, Hkv, Sq, Skv, D, dtype, 400 + i, device)
+        got = flash_ops.flash_attention(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        want = attention_ref(q, k, v, causal=causal)
+        err = float((got.float() - want.float()).abs().max())
+        if not err <= FLASH_ATOL[dtype]:
+            raise AssertionError(f"flash_attention differs from its plain "
+                                 f"version by {err:.3g} at {FLASH_SHAPES[i]}")
+        worst = max(worst, err)
+        big = Sq * Skv * B * Hq > 1 << 26
+        iters = 10 if big else 200
+        call = (lambda: flash_ops.flash_attention(q, k, v, causal=causal))
+        ms = time_cuda(call, iters, warm=3 if big else 20)
+        dev = device_us(call, "flash_attention_kernel", 5 if big else 200)
+        plain = time_cuda(lambda: attention_ref(q, k, v, causal=causal),
+                          3 if big else 50, warm=2)
+        lib = time_cuda(lambda: sdpa(q, k, v, causal), iters,
+                        warm=3 if big else 20)
+        bound, by = flash_bound_ms(B, Hq, Hkv, Sq, Skv, D, causal, dtype)
+        log(f"[kernels] flash_attention (B, Hq, Hkv, Sq, Skv, D)="
+            f"{(B, Hq, Hkv, Sq, Skv, D)} causal={causal} {dtype} == plain "
+            f"version (max |d| {err:.3g}): {ms:.6f} ms per call (events), "
+            f"kernel alone {fmt_us(dev)} (profiler), plain {plain:.6f} ms, "
+            f"library SDPA {lib:.6f} ms, bound {bound:.9f} ms ({by})")
+        if FLASH_SHAPES[i] == FLASH_LM_SHAPE:
+            entry = {"ms": ms, "plain_ms": plain, "bound_ms": bound,
+                     "bound_by": by, "library_ms": lib, "kernel_us": dev,
+                     "shape": [B, Hq, Hkv, Sq, Skv, D]}
+        del q, k, v, got, want
+    log(f"[kernels] flash_attention == plain version on {len(FLASH_SHAPES)} "
+        f"cases (float32 within {FLASH_ATOL[torch.float32]}, bfloat16 "
+        f"within {FLASH_ATOL[torch.bfloat16]})")
+    return {"max_abs_err": worst, **entry}
 
 
 # ---------------------------------------------------------------------------
@@ -716,6 +846,124 @@ def run_hmooc2_path(device, model, n_queries: int = 32) -> dict:
     return {"launches": launches, "row": row, "bank": banks[0]}
 
 
+def lm_prompts(vocab: int, batch: int, length: int, device) -> torch.Tensor:
+    """Token ids made with numpy from seed 0."""
+    rng = np.random.default_rng(0)
+    return torch.from_numpy(rng.integers(0, vocab, (batch, length))).to(device)
+
+
+def generate(model, tokens: torch.Tensor, capacity: int, steps: int):
+    """Prefill ``tokens`` into a cache of ``capacity`` slots through the
+    port's serving functions, then ``steps`` greedy decode steps.  Returns
+    the prefill logits, the generated tokens (B, steps + 1), the prefill and
+    decode wall times (s) and the cache."""
+    sf = make_serve_fns(model)
+    B, S = tokens.shape
+    cache = model.init_cache(B, capacity)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = sf.prefill(tokens, cache)
+    nxt = torch.argmax(logits[:, -1], -1)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    out = [nxt]
+    for t in range(steps):
+        pos = torch.full((B, 1), S + t, dtype=torch.int64, device=tokens.device)
+        step_logits, cache = sf.decode(nxt[:, None], cache, pos)
+        nxt = torch.argmax(step_logits[:, -1], -1)
+        out.append(nxt)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    if any(c["len"] != S + steps for c in cache):
+        raise AssertionError("a layer's cache holds the wrong length")
+    return logits, torch.stack(out, 1), t1 - t0, t2 - t1, cache
+
+
+def run_lm_path(device, cfg=None, batch: int = LM_BATCH,
+                prompt: int = LM_PROMPT, gen: int = LM_GEN,
+                capacity: int = LM_CAPACITY) -> dict:
+    """Dense-LM serving at full width: one prompt-scoring forward with the
+    flash route (a kernel launch per layer), then generation through the
+    cache (no kernel launch, as in the reference).  Both run after an
+    untimed warm-up at 128 tokens."""
+    cfg = cfg or get_config(LM_ARCH, use_flash=True)
+    t0 = time.perf_counter()
+    model = build_model(cfg, device,
+                        torch.Generator(device=device).manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"[lm] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv} heads of {cfg.head_dim}, d_ff {cfg.d_ff}, "
+        f"vocab {cfg.vocab}, {cfg.dtype}, {n_params} parameters drawn on "
+        f"the card in {time.perf_counter() - t0:.2f} s")
+    tokens = lm_prompts(cfg.vocab, batch, prompt, device)
+    with torch.no_grad():
+        model(tokens[:, :128], last_only=True)
+    generate(model, tokens[:, :128], 136, 2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        scores, _ = model(tokens, last_only=True)
+    torch.cuda.synchronize()
+    score_s = time.perf_counter() - t0
+    scoring_launches = flash_ops.LAUNCHES
+    if scoring_launches != cfg.n_layers:
+        raise AssertionError(f"prompt scoring launched flash_attention "
+                             f"{scoring_launches} times for {cfg.n_layers} "
+                             "layers")
+    pre_logits, generated, prefill_s, decode_s, cache = generate(
+        model, tokens, capacity, gen - 1)
+    launches = read_launches()
+    # Device time of one more scoring forward and one more decode step
+    # (the cache has a free slot), against the untraced wall times above.
+    with torch.no_grad():
+        score_busy = device_busy_ms(lambda: model(tokens, last_only=True))
+    pos = torch.full((batch, 1), prompt + gen - 1, device=device)
+    step_busy = device_busy_ms(lambda: make_serve_fns(model).decode(
+        generated[:, -1:], cache, pos))
+    require_launches("lm", launches)
+    if launches["flash_attention"] != scoring_launches:
+        raise AssertionError("generation launched the flash kernel")
+    peak = torch.cuda.max_memory_allocated()
+    if scores.shape != (batch, 1, cfg.vocab) or \
+            not torch.isfinite(scores).all():
+        raise AssertionError(f"bad scoring logits {tuple(scores.shape)}")
+    if not torch.isfinite(pre_logits).all():
+        raise AssertionError("non-finite prefill logits")
+    if generated.shape != (batch, gen) or not (
+            (generated >= 0) & (generated < cfg.vocab)).all():
+        raise AssertionError("generated tokens out of range")
+    diff = float((scores.float() - pre_logits.float()).abs().max())
+    agree = float((scores[:, -1].argmax(-1)
+                   == pre_logits[:, -1].argmax(-1)).float().mean())
+    row = {"scoring_tokens_per_s": batch * prompt / score_s,
+           "scoring_s": score_s, "prefill_ms": prefill_s * 1e3,
+           "decode_steps": gen - 1,
+           "decode_tokens_per_s": batch * (gen - 1) / decode_s,
+           "decode_s": decode_s, "max_memory_bytes": peak,
+           "flash_launches_scoring": scoring_launches,
+           "flash_launches_generation": launches["flash_attention"]
+           - scoring_launches,
+           "scoring_device_busy_ms": score_busy,
+           "decode_step_ms": decode_s / (gen - 1) * 1e3,
+           "decode_step_device_busy_ms": step_busy,
+           "flash_vs_plain_bf16_max_logit_diff": diff,
+           "next_token_agreement": agree}
+    log(f"[lm] {json.dumps(row)}")
+    log(f"[lm] scoring {row['scoring_tokens_per_s']:.1f} tokens/s "
+        f"({batch} x {prompt}); prefill {row['prefill_ms']:.3f} ms; decode "
+        f"{row['decode_tokens_per_s']:.3f} tokens/s ({batch} x {gen - 1} "
+        f"steps); peak memory {peak} bytes; card busy {score_busy:.3f} ms "
+        f"of a {score_s * 1e3:.3f} ms scoring forward and "
+        f"{step_busy:.3f} ms of a {row['decode_step_ms']:.3f} ms decode "
+        f"step (profiler against untraced wall time); bfloat16 logits of the flash "
+        f"route (scoring) and the plain route (prefill) differ by at most "
+        f"{diff:.4g}; sample {generated[0, :12].tolist()}")
+    return {"launches": launches, "row": row}
+
+
 # ---------------------------------------------------------------------------
 # Phase 4: the card's answers against the host's, on small inputs
 # ---------------------------------------------------------------------------
@@ -788,6 +1036,56 @@ def check_runtime_against_host(model_subq, model_qs, device) -> None:
         f"{worst:.3g} of the host's on {len(sides['card'])} requests")
 
 
+def check_lm_flash_against_plain(device, n_layers: int = 4,
+                                 cfg=None) -> float:
+    """glm4-9b at full width, ``n_layers`` layers, float32 with TF32 off:
+    the scoring logits with ``use_flash`` (the kernel) and without it (the
+    einsum route) on the same weights and prompts, within LM_F32_ATOL."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = cfg or get_config(LM_ARCH, n_layers=n_layers, dtype="float32",
+                            use_flash=True)
+    model = build_model(cfg, device,
+                        torch.Generator(device=device).manual_seed(1))
+    tokens = lm_prompts(cfg.vocab, LM_BATCH, LM_PROMPT, device)
+    with torch.no_grad():
+        flash, _ = model(tokens, last_only=True)
+        model.cfg = cfg.with_(use_flash=False)
+        plain, _ = model(tokens, last_only=True)
+    err = float((flash - plain).abs().max())
+    if not (torch.isfinite(flash).all() and err <= LM_F32_ATOL):
+        raise AssertionError(f"flash and plain routes differ by {err:.3g}")
+    log(f"[check] {cfg.n_layers}-layer {cfg.name} float32 scoring logits: "
+        f"flash route within {err:.3g} of the plain route (atol "
+        f"{LM_F32_ATOL}; |logit| up to {float(plain.abs().max()):.3g})")
+    return err
+
+
+def check_lm_against_host(device, n_layers: int = 2, cfg=None,
+                          length: int = 256) -> float:
+    """glm4-9b at full width, ``n_layers`` layers, float32: one prompt's
+    next-token logits on the card (flash kernel) and, with the same
+    weights moved to the host, there (the plain version), within
+    LM_F32_ATOL."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = cfg or get_config(LM_ARCH, n_layers=n_layers, dtype="float32",
+                            use_flash=True)
+    model = build_model(cfg, device,
+                        torch.Generator(device=device).manual_seed(2))
+    tokens = lm_prompts(cfg.vocab, 1, length, device)
+    with torch.no_grad():
+        card, _ = model(tokens, last_only=True)
+        card = card.cpu()
+        host, _ = model.to("cpu")(tokens.cpu(), last_only=True)
+    err = float((card - host).abs().max())
+    if not (torch.isfinite(host).all() and err <= LM_F32_ATOL):
+        raise AssertionError(f"card and host logits differ by {err:.3g}")
+    log(f"[check] {cfg.n_layers}-layer {cfg.name} float32 logits of a "
+        f"{length}-token prompt on the card within {err:.3g} of the host's "
+        f"(atol {LM_F32_ATOL})")
+    return err
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -798,7 +1096,8 @@ def main() -> int:
     card = card_line()
     log(f"[card] {card}; torch {torch.__version__}; CUDA {torch.version.cuda}")
     log(f"[build] kernels built in {build_all():.2f} s (in parallel)")
-    entries = {"pareto_filter": check_pareto_filter(device)}
+    entries = {"pareto_filter": check_pareto_filter(device),
+               "flash_attention": check_flash_attention(device)}
     ws_err = check_ws_reduce(device)
     fused_err = check_fused_solve(device)
     compile_path = run_main_path(device)
@@ -816,9 +1115,15 @@ def main() -> int:
     check_against_host(compile_path["model"], device)
     check_runtime_against_host(compile_path["model"],
                                runtime_path["model_qs"], device)
+    lm_path = run_lm_path(device)
+    torch.cuda.empty_cache()
+    check_lm_flash_against_plain(device)
+    torch.cuda.empty_cache()
+    check_lm_against_host(device)
     paths = {"compile": compile_path["launches"],
              "runtime": runtime_path["launches"],
-             "hmooc2": hmooc2_path["launches"]}
+             "hmooc2": hmooc2_path["launches"],
+             "lm": lm_path["launches"]}
     kernels = []
     for k in KERNELS:
         e = dict(entries[k["name"]])

@@ -1,0 +1,68 @@
+"""Architecture registry: ``--arch <id>`` → configuration → model.
+
+``ARCH_IDS`` lists every architecture the reference knows; the port has
+the configurations and the model of the dense family (minicpm-2b,
+deepseek-coder-33b, glm4-9b, qwen2-72b).  The others raise
+``NotImplementedError`` until their family is ported.
+"""
+from __future__ import annotations
+
+import importlib
+from typing import List, Optional
+
+import torch
+
+from ..device import DeviceLike, resolve_device
+from .common import ArchConfig
+from .lm import LM
+
+__all__ = ["ARCH_IDS", "get_config", "get_smoke_config", "build_model"]
+
+ARCH_IDS: List[str] = [
+    "minicpm-2b",
+    "deepseek-coder-33b",
+    "glm4-9b",
+    "qwen2-72b",
+    "dbrx-132b",
+    "moonshot-v1-16b-a3b",
+    "jamba-1.5-large-398b",
+    "rwkv6-1.6b",
+    "whisper-base",
+    "internvl2-76b",
+]
+
+_PORTED = ("minicpm-2b", "deepseek-coder-33b", "glm4-9b", "qwen2-72b")
+
+
+def _module(arch_id: str):
+    if arch_id not in ARCH_IDS:
+        raise ValueError(f"unknown architecture {arch_id!r}")
+    if arch_id not in _PORTED:
+        raise NotImplementedError(
+            f"{arch_id}: its family is not ported yet (ROADMAP queue 1, "
+            "item 13, the rest of the LLM scaffold)")
+    mod_name = arch_id.replace("-", "_").replace(".", "_")
+    return importlib.import_module(f"repro_torch.configs.{mod_name}")
+
+
+def get_config(arch_id: str, **overrides) -> ArchConfig:
+    cfg = _module(arch_id).config()
+    return cfg.with_(**overrides) if overrides else cfg
+
+
+def get_smoke_config(arch_id: str, **overrides) -> ArchConfig:
+    cfg = _module(arch_id).smoke_config()
+    return cfg.with_(**overrides) if overrides else cfg
+
+
+def build_model(cfg: ArchConfig, device: DeviceLike = None,
+                generator: Optional[torch.Generator] = None) -> LM:
+    """The model of ``cfg`` with weights drawn on ``device`` (``None``: the
+    CUDA card) from ``generator`` (default: seeded with 0 on that device).
+    """
+    dev = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+    elif generator.device.type != dev.type:
+        raise ValueError(f"generator on {generator.device}, model on {dev}")
+    return LM(cfg, generator=generator)

@@ -1,0 +1,42 @@
+"""Serving steps: batched prefill into a KV cache, then one-token decode.
+
+The counterpart of the reference's ``train/serve.py`` on one card: the same
+two functions, called eagerly, without jit, shardings or buffer donation
+(the cache is updated in place instead, see ``archs/blocks.py``).  Neither
+function builds an autograd graph.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Tuple
+
+import torch
+
+from ..archs.lm import LM
+
+__all__ = ["ServeFns", "make_serve_fns"]
+
+
+@dataclasses.dataclass
+class ServeFns:
+    prefill: Callable[..., Tuple[torch.Tensor, Any]]
+    decode: Callable[..., Tuple[torch.Tensor, Any]]
+
+
+def make_serve_fns(model: LM) -> ServeFns:
+    """``prefill(tokens, cache)`` → (last-position logits (B, 1, V), cache);
+    ``decode(tokens (B, 1), cache, positions (B, 1))`` → (logits, cache).
+
+    The cache comes from ``model.init_cache(batch, max_len)``.  The prompt
+    goes through the cache path, so generation never launches the flash
+    kernel, as in the reference.
+    """
+    def prefill(tokens, cache):
+        with torch.no_grad():
+            return model(tokens, caches=cache, last_only=True)
+
+    def decode(tokens, cache, positions):
+        with torch.no_grad():
+            return model(tokens, caches=cache, positions=positions)
+
+    return ServeFns(prefill=prefill, decode=decode)

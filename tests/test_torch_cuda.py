@@ -12,7 +12,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.archs.registry import build_model, get_smoke_config
 from repro_torch.core.moo.hmooc import HMOOCConfig
+from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.fused_solve import ops as fused_ops
 from repro_torch.kernels.fused_solve.ref import fused_ws_front_ref
 from repro_torch.kernels.pareto_filter import ops as pareto_ops
@@ -192,3 +195,79 @@ def test_oracle_runtime_session_card_equals_host(cuda_device):
         np.testing.assert_array_equal(a.sim.actual_latency,
                                       b.sim.actual_latency)
         np.testing.assert_array_equal(a.sim.cost, b.sim.cost)
+
+
+# (B, Hq, Hkv, Sq, Skv, D, causal): the reference kernel tests' f32 shapes,
+# then the smoke models' head widths (24, 32) and the largest bucket (256).
+FLASH_SHAPES = [(1, 4, 4, 128, 128, 64, True), (2, 8, 2, 256, 256, 64, True),
+                (1, 4, 1, 100, 100, 128, True), (1, 4, 2, 1, 300, 64, False),
+                (1, 8, 4, 96, 480, 64, True), (2, 2, 2, 64, 64, 128, False),
+                (2, 4, 1, 70, 70, 24, True), (1, 4, 2, 33, 33, 32, True),
+                (1, 2, 1, 130, 130, 256, True)]
+
+
+def _flash_inputs(B, Hq, Hkv, Sq, Skv, D, dtype, device, seed):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(
+        device=device, dtype=dtype)
+        for s in ((B, Hq, Sq, D), (B, Hkv, Skv, D), (B, Hkv, Skv, D))]
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv,D,causal", FLASH_SHAPES)
+def test_flash_attention_kernel_matches_plain_version_f32(
+        cuda_device, B, Hq, Hkv, Sq, Skv, D, causal):
+    """float32 within atol 2e-5 (the reference kernel test's tolerance):
+    the online softmax rescales per 64-key tile, the plain version takes
+    one softmax, so the sums round differently."""
+    q, k, v = _flash_inputs(B, Hq, Hkv, Sq, Skv, D, torch.float32,
+                            cuda_device, Sq + Skv)
+    before = flash_ops.LAUNCHES
+    got = flash_ops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_ops.LAUNCHES == before + 1
+    want = attention_ref(q, k, v, causal=causal)
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=0)
+    # A query tensor that is not contiguous (as after RoPE) gives the same.
+    qt = q.transpose(1, 2).contiguous().transpose(1, 2)
+    torch.testing.assert_close(
+        flash_ops.flash_attention(qt, k, v, causal=causal), got, atol=0,
+        rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_flash_attention_kernel_matches_plain_version_half(cuda_device,
+                                                           dtype):
+    """16-bit inputs: both sides compute in float32 and round the output
+    once, so they differ by about one rounding of the output (atol 3e-2,
+    the reference's bf16 tolerance)."""
+    q, k, v = _flash_inputs(2, 8, 2, 300, 300, 128, dtype, cuda_device, 0)
+    got = flash_ops.flash_attention(q, k, v, causal=True)
+    assert got.dtype == dtype
+    want = attention_ref(q, k, v, causal=True)
+    torch.testing.assert_close(got.float(), want.float(), atol=3e-2, rtol=0)
+
+
+def test_flash_attention_causal_sq_above_skv_raises(cuda_device):
+    q, k, v = _flash_inputs(1, 2, 2, 8, 4, 32, torch.float32, cuda_device, 0)
+    with pytest.raises(ValueError, match="no key"):
+        flash_ops.flash_attention(q, k, v, causal=True)
+
+
+@pytest.mark.parametrize("arch", ["glm4-9b", "minicpm-2b",
+                                  "deepseek-coder-33b", "qwen2-72b"])
+def test_smoke_lm_flash_card_matches_host(cuda_device, arch):
+    """The smoke model with ``use_flash`` on the card (one kernel launch a
+    layer) against the same weights on the host, float32 with TF32 off:
+    logits within atol 1e-4 (sums in another order on the card)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_smoke_config(arch, dtype="float32", use_flash=True)
+    card = build_model(cfg, cuda_device)
+    host = build_model(cfg, "cpu")
+    host.load_state_dict({k: t.cpu() for k, t in card.state_dict().items()})
+    tokens = np.random.default_rng(1).integers(0, cfg.vocab, (2, 48))
+    before = flash_ops.LAUNCHES
+    got, _ = card(tokens)
+    torch.cuda.synchronize()
+    assert flash_ops.LAUNCHES == before + cfg.n_layers
+    want, _ = host(tokens)
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=0)
