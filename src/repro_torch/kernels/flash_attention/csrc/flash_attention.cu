@@ -1,10 +1,20 @@
-// Flash attention with grouped-query heads for Hopper (sm_90a).
+// Flash attention with grouped-query heads for Hopper (sm_90a): the body
+// on the CUDA cores, and the C entry point that picks a body.
 //
 // Replaces the TPU kernel
 // src/repro/kernels/flash_attention/kernel.py::flash_attention_pallas.
 //
-// What it computes: for q (BH, Sq, D) and k, v (BH / group, Skv, D) in
-// float32, bfloat16 or float16, o = softmax(q k^T / sqrt(D)) v per
+// Two bodies compute the same function.  flash_attention_wgmma.cu runs
+// both products on the tensor cores and takes bfloat16 and float16 with
+// D <= 128: every model configuration of the repository.  This file's
+// body takes what that one does not: float32 inputs (the tensor cores
+// would round them to TF32, outside the reference test's float32
+// tolerance of 2e-5) and 16-bit inputs with 128 < D <= 256.  The wrapper
+// (ops.py::_body) chooses, and flash_attention_launch runs its choice or
+// refuses the inputs; it never falls back to the other body.
+//
+// What this body computes: for q (BH, Sq, D) and k, v (BH / group, Skv,
+// D) in float32, bfloat16 or float16, o = softmax(q k^T / sqrt(D)) v per
 // collapsed head b, which reads KV head b / group (nothing is repeated in
 // memory).  With `causal`, query t sees keys <= t + Skv - Sq (the ends are
 // aligned); keys >= Skv are masked.  Both products and the online softmax
@@ -12,28 +22,33 @@
 // output is rounded once to the input dtype.  Masked scores are the
 // finite -1e30 the Pallas kernel uses.
 //
-// What bounds it on this card: at the serving shape (B 4, Hq 32, Hkv 2,
-// S 2048, D 128, causal, bf16) the two products are 137.5 GFLOP and the
-// tensors 143 MB, so the work is bound by operations (0.139 ms at the
-// 989 TFLOP/s bf16 tensor-core rate; 0.043 ms of memory at 3.35 TB/s).
+// What bounds it on this card: float32 attention at the reference test
+// shapes is bound by operations at the 67 TFLOP/s float32 rate of the
+// CUDA cores.
 //
-// What the design does about it: this first version is simple and right,
-// not fast.  It runs both products on the CUDA cores in float32 (FMA), so
-// its ceiling is the 67 TFLOP/s float32 rate, about 2 ms at the serving
-// shape, and the tensor cores stay idle.  One block of 256 threads owns 64
-// query rows of one head; a loop inside the block walks the KV tiles of
-// 64 keys in order (the Pallas grid's sequential axis), holding Q, the K
-// and V tile and the score tile in shared memory as float32, the running
-// max and denominator in shared memory and the output accumulator in
-// registers (a 4 x D/16 patch per thread).  Tiles wholly above the causal
-// diagonal are never loaded.  Blocks with the most causal work start
-// first.  A design with wgmma and TMA (bf16 operands from shared memory,
-// warp-specialised loads) is what reaches the bound; it is later work.
+// What the design does about it: it is simple and right, not fast.  One
+// block of 256 threads owns 64 query rows of one head; a loop inside the
+// block walks the KV tiles of 64 keys in order (the Pallas grid's
+// sequential axis), holding Q, the K and V tile and the score tile in
+// shared memory as float32, the running max and denominator in shared
+// memory and the output accumulator in registers (a 4 x D/16 patch per
+// thread).  Tiles wholly above the causal diagonal are never loaded.
+// Blocks with the most causal work start first.
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
+
+// The tensor-core body (flash_attention_wgmma.cu): bfloat16 (dtype 1) or
+// float16 (dtype 2) with D <= Dp <= 128, Dp % 8 == 0, strides as for
+// flash_attention_launch; q, k and v 16-byte aligned with strides that are
+// multiples of 8.
+cudaError_t flash_attention_wgmma(const void* q, const void* k, const void* v,
+                                  void* o, int B, int Hq, int Hkv, int Sq,
+                                  int Skv, int D, int Dp,
+                                  const long long* strides, int causal,
+                                  float scale, int dtype, cudaStream_t stream);
 
 namespace {
 
@@ -272,29 +287,61 @@ cudaError_t launch_d(const void* q, const void* k, const void* v, void* o,
 
 }  // namespace
 
-// q: (BH, Sq, D), k and v: (BH / group, Skv, D), o: (BH, Sq, D), all
-// contiguous on the device in one dtype: 0 float32, 1 bfloat16, 2 float16.
-// Needs 1 <= D <= 256, Sq, Skv >= 1, BH % group == 0 and, with `causal`,
-// Sq <= Skv (every query sees at least one key).  Launches on `stream` and
-// returns cudaGetLastError().
-extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* o, int BH, int Sq,
-                                      int Skv, int D, int group, int causal,
+// The CUDA-core body on contiguous (BH, S, D) tensors.
+cudaError_t flash_attention_simt(const void* q, const void* k, const void* v,
+                                 void* o, int BH, int Sq, int Skv, int D,
+                                 int group, int causal, float scale, int dtype,
+                                 cudaStream_t s) {
+  if (D > 256) return cudaErrorInvalidValue;
+  if (dtype == 0)
+    return launch_d<float>(q, k, v, o, BH, Sq, Skv, D, group, causal, scale, s);
+  // 16-bit inputs with D <= 128 take the tensor-core body.
+  if (D <= 128) return cudaErrorInvalidValue;
+  if (dtype == 1)
+    return launch<__nv_bfloat16, 256>(q, k, v, o, BH, Sq, Skv, D, group,
+                                      causal, scale, s);
+  if (dtype == 2)
+    return launch<__half, 256>(q, k, v, o, BH, Sq, Skv, D, group, causal,
+                               scale, s);
+  return cudaErrorInvalidValue;
+}
+
+// body: 0 the CUDA-core body above, 1 the tensor-core body
+// (flash_attention_wgmma.cu).  q: (B, Hq, Sq, Dp), k and v: (B, Hkv, Skv,
+// Dp), o: (B, Hq, Sq, D) on the device in one dtype (0 float32, 1
+// bfloat16, 2 float16), each with D contiguous; `strides` holds the
+// (batch, head, position) strides in elements of q, k, v and o (12
+// values).  Dp is D, or for the tensor-core body D rounded up to a
+// multiple of 8 with zeros in the added columns.  The CUDA-core body
+// needs all four contiguous.  Needs Sq, Skv >= 1, Hq % Hkv == 0 and, with
+// `causal`, Sq <= Skv (every query sees at least one key).  Launches on
+// `stream` and returns cudaGetLastError(), or cudaErrorInvalidValue for
+// inputs the chosen body does not take.
+extern "C" int flash_attention_launch(int body, const void* q, const void* k,
+                                      const void* v, void* o, int B, int Hq,
+                                      int Hkv, int Sq, int Skv, int D, int Dp,
+                                      const long long* strides, int causal,
                                       float scale, int dtype, void* stream) {
-  if (BH <= 0 || Sq <= 0 || Skv <= 0 || D <= 0 || D > 256 || group <= 0 ||
-      BH % group != 0 || (causal && Sq > Skv))
+  if (B <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Sq <= 0 || Skv <= 0 ||
+      D <= 0 || Dp < D || (causal && Sq > Skv))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0:
-      return launch_d<float>(q, k, v, o, BH, Sq, Skv, D, group, causal, scale, s);
-    case 1:
-      return launch_d<__nv_bfloat16>(q, k, v, o, BH, Sq, Skv, D, group, causal,
-                                     scale, s);
-    case 2:
-      return launch_d<__half>(q, k, v, o, BH, Sq, Skv, D, group, causal, scale,
-                              s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+  if (body == 1)
+    return static_cast<int>(flash_attention_wgmma(q, k, v, o, B, Hq, Hkv, Sq,
+                                                  Skv, D, Dp, strides, causal,
+                                                  scale, dtype, s));
+  if (body != 0 || Dp != D) return static_cast<int>(cudaErrorInvalidValue);
+  // The CUDA-core body takes no strides: all four must be contiguous.
+  const long long q_st[3] = {1LL * Hq * Sq * D, 1LL * Sq * D, D};
+  const long long kv_st[3] = {1LL * Hkv * Skv * D, 1LL * Skv * D, D};
+  const int sizes[2][3] = {{B, Hq, Sq}, {B, Hkv, Skv}};
+  for (int t = 0; t < 4; ++t) {
+    const long long* want = (t == 1 || t == 2) ? kv_st : q_st;
+    const int* n = sizes[(t == 1 || t == 2) ? 1 : 0];
+    for (int i = 0; i < 3; ++i)
+      if (n[i] > 1 && strides[3 * t + i] != want[i])
+        return static_cast<int>(cudaErrorInvalidValue);
   }
+  return static_cast<int>(flash_attention_simt(
+      q, k, v, o, B * Hq, Sq, Skv, D, Hq / Hkv, causal, scale, dtype, s));
 }

@@ -1,10 +1,13 @@
 """Public wrapper for the CUDA flash-attention kernel: (B, H, S, D) with GQA.
 
-On a CUDA tensor :func:`flash_attention` launches the hand-written kernel
-(``csrc/flash_attention.cu``, built at first use) on the current stream
-and raises if the build or the launch fails.  On a CPU tensor it runs the
-plain PyTorch version (``ref.py``), because the host has no kernel to
-launch.
+On a CUDA tensor :func:`flash_attention` launches one of the kernel's two
+bodies (``csrc/*.cu``, built at first use into one library) on the current
+stream and raises if the build or the launch fails: the tensor-core body
+(``flash_attention_wgmma.cu``) for bfloat16 and float16 with head dim
+D ≤ 128, the CUDA-core body (``flash_attention.cu``) for the rest.
+:func:`_body` makes the choice and the C entry point is told it; there is
+no fallback from one body to the other.  On a CPU tensor it runs the plain
+PyTorch version (``ref.py``), because the host has no kernel to launch.
 """
 from __future__ import annotations
 
@@ -18,24 +21,67 @@ import torch
 from .._build import load
 from .ref import attention_ref
 
-__all__ = ["flash_attention", "attention_ref", "LAUNCHES", "SOURCES"]
+__all__ = ["flash_attention", "attention_ref", "LAUNCHES", "LAUNCHES_BY_BODY",
+           "SOURCES"]
 
-SOURCES = (Path(__file__).resolve().parent / "csrc" / "flash_attention.cu",)
+_CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = (_CSRC / "flash_attention.cu", _CSRC / "flash_attention_wgmma.cu")
 MAX_D = 256
+WGMMA_MAX_D = 128
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_BODY_CODES = {"simt": 0, "wgmma": 1}
 
-# Kernel launches made by this process (CUDA tensors only).
+# Kernel launches made by this process (CUDA tensors only), in all and by
+# body.
 LAUNCHES = 0
+LAUNCHES_BY_BODY = {"wgmma": 0, "simt": 0}
+
+
+def _body(dtype: torch.dtype, D: int) -> str:
+    """The kernel body that takes (dtype, head dim D): ``"wgmma"`` (tensor
+    cores) for bfloat16 and float16 with D ≤ 128, else ``"simt"`` (float32
+    FMAs on the CUDA cores): float32 inputs, and 16-bit ones with
+    128 < D ≤ 256."""
+    if dtype in (torch.bfloat16, torch.float16) and D <= WGMMA_MAX_D:
+        return "wgmma"
+    return "simt"
 
 
 @functools.cache
 def _launch_fn():
     """The kernel's C launch function, built and loaded once per process."""
     fn = load("flash_attention", SOURCES).flash_attention_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4
+                   + [ctypes.c_int] * 7
+                   + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int,
+                      ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+def _strides(t: torch.Tensor) -> list:
+    """(batch, head, position) strides of a (B, H, S, D) tensor, in
+    elements; a dimension of size 1 gets the stride it would have if the
+    tensor were contiguous, since any stride describes it."""
+    return [t.stride(i) if t.shape[i] > 1 else math.prod(t.shape[i + 1:])
+            for i in range(3)]
+
+
+def _tma_operand(t: torch.Tensor, Dp: int) -> torch.Tensor:
+    """``t`` as the tensor-core body reads it, through TMA copies: D
+    contiguous, the other strides positive multiples of 16 bytes, the base
+    16-byte aligned.  A view that meets that (q, k and v as the layers hand
+    them over) is passed as it is; otherwise (an expanded view's stride 0
+    among them) a contiguous copy, with D padded by zeros to ``Dp`` (a
+    multiple of 8)."""
+    D = t.shape[-1]
+    if Dp != D:
+        return torch.nn.functional.pad(t, (0, Dp - D))
+    elt = t.element_size()
+    if t.stride(-1) == 1 and t.data_ptr() % 16 == 0 and all(
+            s > 0 and s * elt % 16 == 0 for s in _strides(t)):
+        return t
+    return t.contiguous()
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -44,10 +90,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     q: (B, Hq, Sq, D); k, v: (B, Hkv, Skv, D), Hq % Hkv == 0, one dtype
     (float32, bfloat16 or float16).  Returns (B, Hq, Sq, D) in q's dtype.
-    The heads are collapsed to (B·H, S, D) as in the reference, and query
-    head b reads KV head b // (Hq / Hkv).  Inputs that are not contiguous
-    (q after RoPE and the head transpose) are copied to contiguous memory
-    before the launch; the kernel takes no strides.
+    Query head h reads KV head h // (Hq / Hkv), as in the reference.  The
+    tensor-core body (16-bit, D ≤ 128) reads q, k and v through their
+    strides (q after RoPE and the head transpose is not copied) and
+    returns a transposed view of (B, Sq, Hq, D) memory; the CUDA-core body
+    copies inputs that are not contiguous and returns contiguous memory.
 
     With ``causal``, query t sees keys ≤ t + Skv − Sq.  Causal with
     Sq > Skv raises: then the first rows see no key at all, and the
@@ -88,20 +135,32 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         raise RuntimeError("the flash-attention kernel has no backward pass")
-    out = torch.empty((B * Hq, Sq, D), dtype=q.dtype, device=q.device)
+    body = _body(q.dtype, D)
+    if body == "wgmma":
+        Dp = -(-D // 8) * 8
+        qf, kf, vf = (_tma_operand(t, Dp) for t in (q, k, v))
+        # (B, Sq, Hq, D) memory: the layer's transpose back to (B, S, H·D)
+        # is then a view.
+        out = torch.empty((B, Sq, Hq, D), dtype=q.dtype,
+                          device=q.device).transpose(1, 2)
+    else:
+        Dp = D
+        qf, kf, vf = q.contiguous(), k.contiguous(), v.contiguous()
+        out = torch.empty((B, Hq, Sq, D), dtype=q.dtype, device=q.device)
     if Sq == 0 or B * Hq == 0:
-        return out.view(B, Hq, Sq, D)
-    qf = q.contiguous()
-    kf = k.contiguous()
-    vf = v.contiguous()
+        return out
+    strides = (ctypes.c_longlong * 12)(
+        *_strides(qf), *_strides(kf), *_strides(vf), *_strides(out))
     launch = _launch_fn()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = launch(qf.data_ptr(), kf.data_ptr(), vf.data_ptr(),
-                     out.data_ptr(), B * Hq, Sq, Skv, D, Hq // Hkv,
-                     int(causal), 1.0 / math.sqrt(D), _DTYPE_CODES[q.dtype],
-                     stream)
+        err = launch(_BODY_CODES[body], qf.data_ptr(), kf.data_ptr(),
+                     vf.data_ptr(), out.data_ptr(), B, Hq, Hkv, Sq, Skv, D, Dp,
+                     strides, int(causal), 1.0 / math.sqrt(D),
+                     _DTYPE_CODES[q.dtype], stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")
+        raise RuntimeError(f"flash_attention launch failed ({body} body): "
+                           f"CUDA error {err}")
     LAUNCHES += 1
-    return out.view(B, Hq, Sq, D)
+    LAUNCHES_BY_BODY[body] += 1
+    return out

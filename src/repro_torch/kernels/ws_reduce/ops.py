@@ -2,8 +2,12 @@
 
 On a CUDA tensor :func:`ws_reduce` launches the hand-written kernel
 (``csrc/ws_reduce.cu``, built at first use) on the current stream and
-raises if the build or the launch fails.  On a CPU tensor it runs the plain
-PyTorch version (``ref.py``), because the host has no kernel to launch.
+raises if the build or the launch fails.  The kernel reads float32 or
+float64 banks and weights as they are and does the cast and the
+``nan_to_num`` itself, so the wrapper issues no PyTorch op before the
+launch but the output's allocation.  On a CPU tensor it runs the plain
+PyTorch version (``ref.py``) after the same cast and ``nan_to_num``,
+because the host has no kernel to launch.
 """
 from __future__ import annotations
 
@@ -21,6 +25,9 @@ __all__ = ["ws_reduce", "ws_reduce_ref", "LAUNCHES", "SOURCES"]
 
 SOURCES = (Path(__file__).resolve().parent / "csrc" / "ws_reduce.cu",)
 MAX_K = 8
+# Element types the kernel reads directly (F and W share one); others are
+# cast to float32.
+_TYPE_CODES = {torch.float32: 0, torch.float64: 1}
 
 # Kernel launches made by this process (CUDA tensors only).
 LAUNCHES = 0
@@ -30,9 +37,8 @@ LAUNCHES = 0
 def _launch_fn():
     """The kernel's C launch function, built and loaded once per process."""
     fn = load("ws_reduce", SOURCES).ws_reduce_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
+        ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -43,9 +49,9 @@ def ws_reduce(F: torch.Tensor, W: torch.Tensor
 
     ``vals`` is the least float32 score ``W[w] · F[i, b]`` over ``b`` and
     ``idx`` (int32) its first index.  Like the reference wrapper, ``F`` is
-    cast to float32 and passed through ``nan_to_num(posinf=1e30)`` first,
-    so a +inf (padded) slot never wins over a finite one and a bank of
-    padding alone returns index 0.
+    cast to float32 and passed through ``nan_to_num(posinf=1e30)`` first
+    (on the card inside the kernel), so a +inf (padded) slot never wins
+    over a finite one and a bank of padding alone returns index 0.
     """
     global LAUNCHES
     if F.dim() != 3 or not 1 <= F.shape[2] <= MAX_K or F.shape[1] == 0:
@@ -60,21 +66,31 @@ def ws_reduce(F: torch.Tensor, W: torch.Tensor
     if W.device != F.device:
         raise ValueError(f"F on {F.device} but W on {W.device}")
     nw = W.shape[0]
-    F32 = torch.nan_to_num(F.to(torch.float32), posinf=1e30).contiguous()
-    W32 = W.to(torch.float32).contiguous()
     if F.device.type == "cpu":
-        return ws_reduce_ref(F32, W32)
+        return ws_reduce_ref(
+            torch.nan_to_num(F.to(torch.float32), posinf=1e30),
+            W.to(torch.float32))
     if F.device.type != "cuda":
         raise ValueError(f"unsupported device {F.device}")
+    if F.dtype not in _TYPE_CODES:
+        F = F.to(torch.float32)
+    if W.dtype != F.dtype:
+        # Exact for float32 -> float64; float64 -> float32 rounds as the
+        # kernel would.
+        W = W.to(F.dtype)
+    if not F.is_contiguous():
+        F = F.contiguous()
+    if not W.is_contiguous():
+        W = W.contiguous()
     vals = torch.empty((nw, m), dtype=torch.float32, device=F.device)
     idx = torch.empty((nw, m), dtype=torch.int32, device=F.device)
     if m == 0:
         return vals, idx
     launch = _launch_fn()
     with torch.cuda.device(F.device):
-        stream = torch.cuda.current_stream(F.device).cuda_stream
-        err = launch(F32.data_ptr(), W32.data_ptr(), vals.data_ptr(),
-                     idx.data_ptr(), m, B, k, nw, stream)
+        err = launch(F.data_ptr(), W.data_ptr(), vals.data_ptr(),
+                     idx.data_ptr(), m, B, k, nw, _TYPE_CODES[F.dtype],
+                     torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"ws_reduce launch failed: CUDA error {err}")
     LAUNCHES += 1

@@ -133,6 +133,43 @@ def test_ws_reduce_kernel_matches_plain_version(cuda_device, m, B, k, nw):
         assert (i[:, -1] == 1).all()
 
 
+def _ws_sanitise_case():
+    """float64 banks holding NaN, ±inf, ±1e300 (beyond float32) and a bank
+    of padding alone: what the kernel's cast and nan_to_num rewrite.  The
+    same case as ``test_torch_ws_reduce.py``'s, which this file cannot
+    import (that one imports JAX)."""
+    rng = np.random.default_rng(11)
+    F = rng.random((4, 40, 2))
+    F[0, 3, 0] = np.nan
+    F[0, 5, 1] = np.inf
+    F[1, 2, 0] = -np.inf
+    F[1, 7, 1] = 1e300
+    F[2, 1, 0] = -1e300
+    F[2, 9] = 1e300
+    F[3] = np.inf
+    return F, rng.random((3, 2))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_ws_reduce_kernel_sanitises_like_plain_version(cuda_device, dtype):
+    """The kernel reads float64 or float32 banks as they are and casts and
+    sanitises each element itself: indices exact and values within rtol
+    1e-5 of the plain version after the host-side cast and nan_to_num."""
+    F, W = _ws_sanitise_case()
+    Ft = torch.from_numpy(F).to(cuda_device, dtype)
+    Wt = torch.from_numpy(W).to(cuda_device, dtype)
+    before = ws_ops.LAUNCHES
+    v, i = ws_ops.ws_reduce(Ft, Wt)
+    torch.cuda.synchronize()
+    assert ws_ops.LAUNCHES == before + 1
+    vr, ir = ws_reduce_ref(
+        torch.nan_to_num(Ft.to(torch.float32), posinf=1e30),
+        Wt.to(torch.float32))
+    np.testing.assert_array_equal(i.cpu().numpy(), ir.cpu().numpy())
+    np.testing.assert_allclose(v.cpu().numpy(), vr.cpu().numpy(), rtol=1e-5)
+    assert (i[:, 3] == 0).all()
+
+
 def _fused_case(N, m, B, k, nw, seed):
     rng = np.random.default_rng(seed)
     Fb = rng.random((N, m, B, k))
@@ -234,17 +271,126 @@ def test_flash_attention_kernel_matches_plain_version_f32(
         rtol=0)
 
 
+# The tensor-core body's 16-bit outputs against the float32 plain version
+# before its rounding: |got - want| <= a + r |want| per element (a, r).
+# r is twice the most that rounding to the type moves a value (2^-8
+# relative for bfloat16, 2^-11 for float16); a covers the float32 sums
+# taken in another order.  Late causal rows have |o| of about 0.03-0.05 on
+# unit-normal inputs, so atol 3e-2 alone would let a wrong key/value tile
+# through.  The same bound as chip_smoke.py's FLASH_SCALED_TOL.
+WGMMA_SCALED_TOL = {torch.bfloat16: (1e-3, 2 ** -7),
+                    torch.float16: (1.25e-4, 2 ** -10)}
+
+
+def _assert_within_scaled_tol(got, q, k, v, causal):
+    a, r = WGMMA_SCALED_TOL[got.dtype]
+    want = attention_ref(q.float(), k.float(), v.float(), causal=causal)
+    excess = ((got.float() - want).abs() - r * want.abs()).max().item()
+    assert excess <= a, (f"max(|d| - {r:.3g}|want|) = {excess:.3g} > {a}")
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 def test_flash_attention_kernel_matches_plain_version_half(cuda_device,
                                                            dtype):
     """16-bit inputs: both sides compute in float32 and round the output
     once, so they differ by about one rounding of the output (atol 3e-2,
-    the reference's bf16 tolerance)."""
+    the reference's bf16 tolerance; and a + r|want| of the float32
+    output)."""
     q, k, v = _flash_inputs(2, 8, 2, 300, 300, 128, dtype, cuda_device, 0)
     got = flash_ops.flash_attention(q, k, v, causal=True)
     assert got.dtype == dtype
     want = attention_ref(q, k, v, causal=True)
     torch.testing.assert_close(got.float(), want.float(), atol=3e-2, rtol=0)
+    _assert_within_scaled_tol(got, q, k, v, True)
+
+
+# (B, Hq, Hkv, Sq, Skv, causal) for the tensor-core body: ragged lengths
+# (300, 1000), a causal continuation chunk (96 queries after 384 cached
+# keys), non-causal, one query against 300 keys; GQA groups 1, 4 and 16.
+WGMMA_CASES = [(1, 4, 4, 300, 300, True), (1, 16, 4, 1000, 1000, True),
+               (2, 8, 2, 96, 480, True), (1, 16, 1, 300, 300, False),
+               (1, 4, 2, 1, 300, False), (1, 16, 1, 1000, 1000, True)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("D", [24, 64, 128])
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv,causal", WGMMA_CASES)
+def test_flash_attention_wgmma_body_matches_plain_version(
+        cuda_device, dtype, D, B, Hq, Hkv, Sq, Skv, causal):
+    """16-bit inputs with D ≤ 128 take the tensor-core body.  It keeps the
+    probabilities as a high and a low 16-bit part and rounds the output
+    once, so it stays within atol 3e-2 of the plain version (the
+    reference's bf16 tolerance) and within a + r|want| of its float32
+    output."""
+    q, k, v = _flash_inputs(B, Hq, Hkv, Sq, Skv, D, dtype, cuda_device,
+                            Sq + Skv + D)
+    before = dict(flash_ops.LAUNCHES_BY_BODY)
+    got = flash_ops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_ops.LAUNCHES_BY_BODY == {
+        "wgmma": before["wgmma"] + 1, "simt": before["simt"]}
+    assert got.dtype == dtype and got.shape == (B, Hq, Sq, D)
+    want = attention_ref(q, k, v, causal=causal)
+    torch.testing.assert_close(got.float(), want.float(), atol=3e-2, rtol=0)
+    _assert_within_scaled_tol(got, q, k, v, causal)
+    # q as the layers hand it over (a transposed view of (B, S, H, D)) is
+    # read in place through its strides, with the same answer.
+    qt = q.transpose(1, 2).contiguous().transpose(1, 2)
+    torch.testing.assert_close(
+        flash_ops.flash_attention(qt, k, v, causal=causal), got, atol=0,
+        rtol=0)
+
+
+@pytest.mark.parametrize("D", [20, 21, 100])
+def test_flash_attention_wgmma_body_pads_other_head_dims(cuda_device, D):
+    """A head dim that is not a multiple of 8 is zero-padded to one for the
+    TMA copies (strides must be multiples of 16 bytes); an odd one is
+    stored element by element.  Both within atol 3e-2 and a + r|want|."""
+    q, k, v = _flash_inputs(1, 8, 2, 200, 200, D, torch.bfloat16,
+                            cuda_device, D)
+    before = dict(flash_ops.LAUNCHES_BY_BODY)
+    got = flash_ops.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert flash_ops.LAUNCHES_BY_BODY["wgmma"] == before["wgmma"] + 1
+    assert got.shape == (1, 8, 200, D)
+    want = attention_ref(q, k, v, causal=True)
+    torch.testing.assert_close(got.float(), want.float(), atol=3e-2, rtol=0)
+    _assert_within_scaled_tol(got, q, k, v, True)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_flash_attention_wgmma_body_takes_expanded_kv(cuda_device, dtype):
+    """k and v expanded over the batch (stride 0, which a TMA map cannot
+    take) are copied first, and give what their contiguous copies give."""
+    q, k, v = _flash_inputs(3, 8, 2, 260, 260, 64, dtype, cuda_device, 5)
+    ke, ve = k[:1].expand(3, -1, -1, -1), v[:1].expand(3, -1, -1, -1)
+    assert ke.stride(0) == 0
+    before = dict(flash_ops.LAUNCHES_BY_BODY)
+    got = flash_ops.flash_attention(q, ke, ve, causal=True)
+    torch.cuda.synchronize()
+    assert flash_ops.LAUNCHES_BY_BODY["wgmma"] == before["wgmma"] + 1
+    torch.testing.assert_close(
+        got, flash_ops.flash_attention(q, ke.contiguous(), ve.contiguous(),
+                                       causal=True), atol=0, rtol=0)
+    _assert_within_scaled_tol(got, q, ke, ve, True)
+
+
+@pytest.mark.parametrize("dtype,D", [(torch.float32, 64),
+                                     (torch.float32, 128),
+                                     (torch.bfloat16, 256),
+                                     (torch.float16, 256)])
+def test_flash_attention_simt_body_takes_the_rest(cuda_device, dtype, D):
+    """float32 inputs and 16-bit inputs with D > 128 launch the CUDA-core
+    body, within its dtype's tolerance (float32 2e-5, 16-bit 3e-2)."""
+    q, k, v = _flash_inputs(1, 4, 2, 130, 130, D, dtype, cuda_device, D)
+    before = dict(flash_ops.LAUNCHES_BY_BODY)
+    got = flash_ops.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert flash_ops.LAUNCHES_BY_BODY == {
+        "wgmma": before["wgmma"], "simt": before["simt"] + 1}
+    want = attention_ref(q, k, v, causal=True)
+    atol = 2e-5 if dtype == torch.float32 else 3e-2
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
 
 
 def test_flash_attention_causal_sq_above_skv_raises(cuda_device):

@@ -72,6 +72,25 @@ def test_flash_attention_bf16_matches_reference():
                                    atol=3e-2, rtol=0)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("D", [1, 24, 32, 64, 65, 128, 129, 256])
+def test_body_choice(dtype, D):
+    """The tensor-core body takes 16-bit inputs with D ≤ 128 (every model
+    configuration); float32 and 16-bit D > 128 take the CUDA-core body."""
+    want = ("wgmma" if dtype != torch.float32 and D <= 128 else "simt")
+    assert port_ops._body(dtype, D) == want
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cpu_tensor_launches_no_body(dtype):
+    q, k, v = (torch.from_numpy(a).to(dtype)
+               for a in _inputs(1, 4, 2, 16, 16, 64, 0))
+    before = port_ops.LAUNCHES, dict(port_ops.LAUNCHES_BY_BODY)
+    port_ops.flash_attention(q, k, v, causal=True)
+    assert (port_ops.LAUNCHES, port_ops.LAUNCHES_BY_BODY) == before
+
+
 def test_flash_attention_causal_sq_above_skv_raises():
     """Rows that see no key have no answer both reference versions agree
     on, so the port refuses them on every device."""

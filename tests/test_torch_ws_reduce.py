@@ -17,6 +17,7 @@ import jax.numpy as jnp
 
 from repro.core.moo import hmooc as ref_hmooc
 from repro.kernels.ws_reduce.kernel import ws_reduce_pallas
+from repro.kernels.ws_reduce.ops import ws_reduce as jax_ws_reduce
 from repro.kernels.ws_reduce.ref import ws_reduce_ref as jnp_ws_reduce_ref
 from repro_torch.core.moo import hmooc as port_hmooc
 from repro_torch.kernels.ws_reduce import ops as port_ops
@@ -72,6 +73,42 @@ def test_ties_and_padding_resolve_like_the_reference():
     assert idx[0, 1] == 1 and idx[1, 1] == 1     # first of the equal sums
     assert (idx[:, 2] == 0).all()                # all padding → index 0
     assert (idx[2] == 0).all()                   # zero weights: all tie
+
+
+def _sanitise_case():
+    """float64 banks with every value ``nan_to_num(F.to(float32),
+    posinf=1e30)`` rewrites: NaN (→ 0), ±inf (→ 1e30, −FLT_MAX), values
+    beyond the float32 range (1e300 → 1e30, −1e300 → −FLT_MAX), and a bank
+    of padding alone (all +inf → index 0)."""
+    rng = np.random.default_rng(11)
+    F = rng.random((4, 40, 2))
+    F[0, 3, 0] = np.nan
+    F[0, 5, 1] = np.inf
+    F[1, 2, 0] = -np.inf
+    F[1, 7, 1] = 1e300
+    F[2, 1, 0] = -1e300
+    F[2, 9] = 1e300
+    F[3] = np.inf
+    return F, rng.random((3, 2))
+
+
+def test_float64_banks_sanitise_like_the_reference():
+    """The wrapper's cast and nan_to_num (inside the kernel on the card, in
+    the wrapper on the host) against the reference's public wrapper, whose
+    Pallas kernel runs in interpret mode: indices exact, values within
+    RTOL."""
+    F, W = _sanitise_case()
+    before = port_ops.LAUNCHES
+    v, i = port_ops.ws_reduce(torch.from_numpy(F), torch.from_numpy(W))
+    assert port_ops.LAUNCHES == before
+    with np.errstate(over="ignore"):       # JAX casts to float32: ±1e300 → ±inf
+        vj, ij = jax_ws_reduce(jnp.asarray(F), jnp.asarray(W),
+                               interpret=True)
+    np.testing.assert_array_equal(i.numpy(), np.asarray(ij))
+    np.testing.assert_allclose(v.numpy(), np.asarray(vj), rtol=RTOL)
+    assert (i[:, 1] == 2).all() and (i[:, 2] == 1).all()   # −inf, −1e300
+    assert (i[:, 3] == 0).all()                            # padding alone
+    assert np.isfinite(v.numpy()[:, :3]).all()
 
 
 def test_wrapper_checks_its_inputs():
