@@ -21,7 +21,13 @@ default model and solver widths:
 
 Each path runs with every kernel's launch count set to 0 just before it
 and read just after; the script fails if a kernel of a path was not
-launched there.  It checks the results of every path and the card's
+launched there, if a compile-time stream makes more than 2
+``pareto_filter`` launches per solved query (one for the banks phase, one
+for the DAG filter), or if a runtime batch makes more than one per
+prefiltering ``weighted_pick_batch`` call.  It also prints the crossover
+between one float64 numpy mask and one kernel launch with its copies, and
+the spread of the LM's bfloat16 logits over three prompt seeds for both
+flash-attention bodies and SDPA.  It checks the results of every path and the card's
 answers against the host's on small inputs (for the LM: the flash route
 against the plain route at 4 layers, and the card against the host at 2
 layers, both at full width in float32).  Every phase raises on failure,
@@ -48,10 +54,12 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+from repro_torch.archs import blocks as arch_blocks  # noqa: E402
 from repro_torch.archs.common import DTYPES  # noqa: E402
 from repro_torch.archs.registry import build_model, get_config  # noqa: E402
 from repro_torch.core.models.perf_model import ModelConfig, PerfModel  # noqa: E402
 from repro_torch.core.moo import hmooc  # noqa: E402
+from repro_torch.core.moo import pareto as pareto_core  # noqa: E402
 from repro_torch.core.moo.hmooc import HMOOCConfig  # noqa: E402
 from repro_torch.core.tuning import runtime as runtime_core  # noqa: E402
 from repro_torch.core.tuning.spark_space import (  # noqa: E402
@@ -65,7 +73,9 @@ from repro_torch.kernels.fused_solve import ops as fused_ops  # noqa: E402
 from repro_torch.kernels.fused_solve.ref import (  # noqa: E402
     fused_ws_front_ref, local_mask_ref)
 from repro_torch.kernels.pareto_filter import ops as pareto_ops  # noqa: E402
-from repro_torch.kernels.pareto_filter.ref import pareto_mask_ref  # noqa: E402
+from repro_torch.kernels import pareto_filter as pareto_pkg  # noqa: E402
+from repro_torch.kernels.pareto_filter.ref import (  # noqa: E402
+    pareto_mask_ref, pareto_masks_ref)
 from repro_torch.kernels.ws_reduce import ops as ws_ops  # noqa: E402
 from repro_torch.kernels.ws_reduce.ref import ws_reduce_ref  # noqa: E402
 from repro_torch.queryengine.aqe import LQPRequest, QSRequest  # noqa: E402
@@ -110,6 +120,21 @@ CHECK_SHAPES = ([MAIN_PATH_SHAPE + ("uniform",), MAIN_PATH_SHAPE + ("front",)]
                 + [(n, k, "uniform") for n in (128, 1000, 4096)
                    for k in (2, 3, 8)]
                 + [(4096, k, "front") for k in (2, 3, 8)])
+# The segmented launch (S, n, k): one bank, a banks phase of 5 and of 9
+# representatives x 10 subQs, a runtime round's candidate sets, K3's global
+# filter at the largest HMOOC2 bank (126 candidates x 11 weights, bucketed),
+# and two long segments at k = 8.  Every case with S > 2 holds a ragged
+# segment, and every case with S > 1 an all-invalid one.
+SEGMENT_SHAPES = [(1, 256, 2), (50, 256, 2), (90, 256, 2), (32, 66, 2),
+                  (3, 1408, 2), (2, 4096, 8)]
+# Timed (S, n, k, layout): a bank alone, a banks phase, K3's global filter,
+# a long segment; the front layouts as in earlier runs.
+SEGMENT_TIMINGS = [(1, 256, 2, "uniform"), (50, 256, 2, "uniform"),
+                   (1, 1408, 2, "uniform"), (1, 4096, 2, "uniform"),
+                   (1, 256, 2, "front"), (1, 4096, 2, "front")]
+# Bank sizes at which the float64 numpy mask and one kernel launch (with its
+# copies and synchronisation) are timed against each other.
+CROSSOVER_N = (16, 32, 64, 128, 256)
 WEIGHTS = (0.9, 0.1)
 # ws_reduce (m, B, k, nw): the kernel tests' shapes, the largest runtime
 # pick (one round of 32 sets of 64 pool rows + 2 seeds, one weight row, if
@@ -172,6 +197,9 @@ LM_F32_ATOL = 5e-4
 # the logits (|logit| < 8, bfloat16 steps of 2^-5 there) by about three
 # steps (0.0898 and 0.0957 measured, PERF.md).  2^-3 is four steps.
 LM_BF16_LOGIT_ATOL = 0.125
+# Prompt seeds of the logit-spread measurement (flash bodies and SDPA
+# against the plain route on the same glm4-9b weights).
+LM_SPREAD_SEEDS = (0, 1, 2)
 
 
 def log(msg: str) -> None:
@@ -222,17 +250,32 @@ def build_all() -> float:
 # ---------------------------------------------------------------------------
 
 def pareto_case(n: int, k: int, seed: int, device, layout="uniform"):
-    """f32 objectives, ~10% invalid rows, some +inf rows.  ``uniform``:
-    uniform in [0, 10)^k.  ``front``: near the surface sum(F) = 10 with a
-    small jitter, anti-correlated objectives like a bank of predictions."""
+    """One (n, k) segment of :func:`segments_case`."""
+    F, valid = segments_case(1, n, k, seed, device, layout)
+    return F[0], valid[0]
+
+
+def segments_case(S: int, n: int, k: int, seed: int, device,
+                  layout="uniform"):
+    """(S, n, k) f32 objectives, ~10% invalid rows, some +inf rows.
+    ``uniform``: uniform in [0, 10)^k.  ``front``: near the surface
+    sum(F) = 10 with a small jitter, anti-correlated objectives like a bank
+    of predictions.  For S > 2 segment 1 is ragged (its tail padded with
+    invalid +inf rows); for S > 1 the last segment is all invalid."""
     rng = np.random.default_rng(seed)
     if layout == "front":
-        F = rng.dirichlet(np.ones(k), n) * 10 + rng.random((n, k)) * 1e-3
+        F = rng.dirichlet(np.ones(k), (S, n)) * 10 \
+            + rng.random((S, n, k)) * 1e-3
     else:
-        F = rng.random((n, k)) * 10
+        F = rng.random((S, n, k)) * 10
     F = F.astype(np.float32)
-    F[rng.random(n) < 0.05] = np.inf
-    valid = (rng.random(n) > 0.1) & np.isfinite(F).all(-1)
+    F[rng.random((S, n)) < 0.05] = np.inf
+    valid = (rng.random((S, n)) > 0.1) & np.isfinite(F).all(-1)
+    if S > 2:
+        F[1, n // 3:] = np.inf
+        valid[1, n // 3:] = False
+    if S > 1:
+        valid[-1] = False
     return (torch.from_numpy(F).to(device), torch.from_numpy(valid).to(device))
 
 
@@ -295,15 +338,21 @@ def bound_ms(n_bytes: float, ops: float, ops_per_s: float = FP32_OPS_PER_S):
 
 def pareto_bound_ms(F: torch.Tensor, valid: torch.Tensor, mask: torch.Tensor):
     """Bytes: F read once (f32), valid read once, the mask written once.
-    Compares: 2k per pair test; a surviving row must be tested against
-    every valid row, a dominated one needs only its dominator."""
-    n, k = F.shape
-    V = int(valid.sum())
-    S = int(mask.sum())
-    return bound_ms(n * k * 4 + n + n, 2 * k * (S * V + (V - S)))
+    Compares: 2k per pair test within a segment; a surviving row must be
+    tested against every valid row of its segment, a dominated one needs
+    only its dominator.  F is (n, k) or (S, n, k)."""
+    k = F.shape[-1]
+    rows = F.numel() // k
+    V = valid.reshape(-1, valid.shape[-1]).sum(-1).double()
+    S = mask.reshape(-1, mask.shape[-1]).sum(-1).double()
+    return bound_ms(rows * k * 4 + rows + rows,
+                    2 * k * float((S * V + (V - S)).sum()))
 
 
 def check_pareto_filter(device) -> dict:
+    """The kernel against its plain version, exactly: single masks (S = 1)
+    at CHECK_SHAPES, then the segmented launch at SEGMENT_SHAPES (one launch
+    each); then the SEGMENT_TIMINGS cases timed."""
     worst = 0
     for i, (n, k, layout) in enumerate(CHECK_SHAPES):
         F, valid = pareto_case(n, k, seed=100 + i, device=device,
@@ -318,27 +367,112 @@ def check_pareto_filter(device) -> dict:
         worst = max(worst, err)
         log(f"[kernels] pareto_filter == plain version at n={n} k={k} "
             f"({layout}): survivors {int(want.sum())}/{n}")
+    for i, (S, n, k) in enumerate(SEGMENT_SHAPES):
+        for layout in ("uniform", "front"):
+            F, valid = segments_case(S, n, k, seed=300 + i, device=device,
+                                     layout=layout)
+            l0 = pareto_ops.LAUNCHES
+            got = pareto_ops.pareto_filter_segments(F, valid)
+            torch.cuda.synchronize()
+            if pareto_ops.LAUNCHES != l0 + 1:
+                raise AssertionError("pareto_filter_segments made "
+                                     f"{pareto_ops.LAUNCHES - l0} launches")
+            want = pareto_masks_ref(F, valid)
+            err = int((got.to(torch.int32)
+                       - want.to(torch.int32)).abs().max())
+            if err != 0 or (S > 1 and bool(got[-1].any())):
+                raise AssertionError(f"pareto_filter_segments disagrees with "
+                                     f"its plain version at (S, n, k)="
+                                     f"{(S, n, k)} ({layout})")
+            log(f"[kernels] pareto_filter_segments == plain version at "
+                f"(S, n, k)={(S, n, k)} ({layout}), one launch: survivors "
+                f"{int(want.sum())}/{S * n}")
     log(f"[kernels] pareto_filter == plain version on {len(CHECK_SHAPES)} "
-        "cases (exact)")
-    timings = {}
-    for n, k, layout in (MAIN_PATH_SHAPE + ("uniform",), (4096, 2, "uniform"),
-                         MAIN_PATH_SHAPE + ("front",), (4096, 2, "front")):
-        F, valid = pareto_case(n, k, seed=7, device=device, layout=layout)
-        mask = pareto_ops.pareto_filter(F, valid)
-        ms = time_cuda(lambda: pareto_ops.pareto_filter(F, valid), 2000)
-        plain = time_cuda(lambda: pareto_mask_ref(F, valid), 200)
-        bound, by = pareto_bound_ms(F, valid, mask)
-        dev = device_us(lambda: pareto_ops.pareto_filter(F, valid),
-                        "pareto_filter_kernel")
-        timings[(n, k, layout)] = (ms, plain, bound, by)
-        log(f"[kernels] pareto_filter n={n} k={k} ({layout}): "
-            f"{ms:.6f} ms per call "
-            f"(events), kernel alone {fmt_us(dev)} "
-            f"(profiler), plain {plain:.6f} ms, bound {bound:.9f} ms ({by}), "
-            f"survivors {int(mask.sum())}/{n}")
-    ms, plain, bound, by = timings[MAIN_PATH_SHAPE + ("uniform",)]
-    return {"max_abs_err": float(worst), "ms": ms, "plain_ms": plain,
-            "bound_ms": bound, "bound_by": by, "library_ms": None}
+        f"single masks and {2 * len(SEGMENT_SHAPES)} segmented launches "
+        "(exact)")
+    for S, n, k, layout in SEGMENT_TIMINGS:
+        F, valid = segments_case(S, n, k, seed=7, device=device,
+                                 layout=layout)
+        measure_pareto_filter(F, valid, f"(S, n, k)={(S, n, k)} ({layout})")
+    return {"max_abs_err": float(worst)}
+
+
+def measure_pareto_filter(F: torch.Tensor, valid: torch.Tensor,
+                          label: str) -> dict:
+    """One segmented launch on (S, n, k) inputs: per call (events), the
+    kernel alone (profiler), the plain version, and the bound."""
+    call = (lambda: pareto_ops.pareto_filter_segments(F, valid))
+    mask = call()
+    err = int((mask.to(torch.int32) - pareto_masks_ref(F, valid).to(
+        torch.int32)).abs().max())
+    if err != 0:
+        raise AssertionError(f"pareto_filter_segments disagrees with its "
+                             f"plain version at {label}")
+    ms = time_cuda(call, 2000)
+    big = F.shape[0] * F.shape[1] ** 2 > 1 << 24
+    plain = time_cuda(lambda: pareto_masks_ref(F, valid), 20 if big else 200,
+                      warm=3 if big else 20)
+    bound, by = pareto_bound_ms(F, valid, mask)
+    dev = device_us(call, "pareto_filter_kernel")
+    log(f"[kernels] pareto_filter {label}: {ms:.6f} ms per call (events), "
+        f"kernel alone {fmt_us(dev)} (profiler), plain {plain:.6f} ms, "
+        f"bound {bound:.9f} ms ({by}), survivors "
+        f"{int(mask.sum())}/{mask.numel()}")
+    return {"max_abs_err": float(err), "ms": ms, "plain_ms": plain,
+            "bound_ms": bound, "bound_by": by, "library_ms": None,
+            "kernel_us": dev, "shape": list(F.shape)}
+
+
+def measure_crossover(device) -> dict:
+    """Host wall time of one mask by the float64 numpy route and by the
+    kernel route (tie check, staging, one copy in, one launch, one copy
+    out), at each CROSSOVER_N, k = 2, and of a banks phase (50 banks of
+    256) by each route.  Reports the least n at which the launch wins; the
+    routing default is not changed here."""
+    rng = np.random.default_rng(21)
+    saved = pareto_core._KERNEL_MIN_N
+    pareto_core._KERNEL_MIN_N = 0
+    rows, cross = [], None
+
+    def host_ms(fn, iters):
+        for _ in range(5):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / iters * 1e3
+
+    try:
+        for n in CROSSOVER_N:
+            F = (rng.random((n, 2)) * 10).astype(np.float32).astype(
+                np.float64)
+            np_ms = host_ms(lambda: pareto_core.pareto_mask_np(F), 300)
+            k_ms = host_ms(lambda: pareto_core.pareto_masks_fast(
+                [F], device=device), 300)
+            rows.append({"n": n, "numpy_ms": np_ms, "kernel_route_ms": k_ms})
+            if cross is None and k_ms < np_ms:
+                cross = n
+        banks = [(rng.random((256, 2)) * 10).astype(np.float32).astype(
+            np.float64) for _ in range(50)]
+        phase_np = host_ms(lambda: [pareto_core.pareto_mask_np(F)
+                                    for F in banks], 30)
+        phase_k = host_ms(lambda: pareto_core.pareto_masks_fast(
+            banks, device=device), 30)
+    finally:
+        pareto_core._KERNEL_MIN_N = saved
+    for r in rows:
+        log(f"[crossover] n={r['n']} k=2: float64 numpy {r['numpy_ms']:.6f}"
+            f" ms, kernel route {r['kernel_route_ms']:.6f} ms per mask "
+            "(host clock)")
+    log(f"[crossover] 50 banks of (256, 2): float64 numpy {phase_np:.6f} ms "
+        f"(50 masks), kernel route {phase_k:.6f} ms (one launch)")
+    log(f"[crossover] the single launch beats float64 numpy from n = "
+        f"{cross if cross is not None else 'none of ' + str(CROSSOVER_N)}; "
+        "REPRO_PARETO_KERNEL_MIN_N's default is unchanged (0 on cuda)")
+    return {"rows": rows, "crossover_n": cross, "phase_numpy_ms": phase_np,
+            "phase_kernel_route_ms": phase_k}
 
 
 def ws_case(m: int, B: int, k: int, nw: int, seed: int, device):
@@ -703,12 +837,23 @@ def run_main_path(device, n_queries: int = 32,
                ("tpch warm", serving_stream("tpch", n_queries, seed=0)),
                ("tpcds", serving_stream("tpcds", n_queries, seed=0))]
     timers = Timers()
+    largest = []
+
+    def segments_seen(F, valid):
+        if not largest or F.numel() > largest[0][0].numel():
+            largest[:] = [(F.clone(), valid.clone())]
+        return seg_orig(F, valid)
+
     orig = (service_mod.fused_stage_eval, hmooc.pareto_mask_fast,
+            hmooc.pareto_masks_fast, pareto_pkg.pareto_filter_segments,
             model.predict_rows, model.embed_many)
+    seg_orig = orig[3]
     service_mod.fused_stage_eval = timers.wrap("stage_eval", orig[0])
     hmooc.pareto_mask_fast = timers.wrap("pareto_masks", orig[1])
-    model.predict_rows = timers.wrap("predict_rows", orig[2])
-    model.embed_many = timers.wrap("embed_many", orig[3])
+    hmooc.pareto_masks_fast = timers.wrap("pareto_masks", orig[2])
+    pareto_pkg.pareto_filter_segments = segments_seen
+    model.predict_rows = timers.wrap("predict_rows", orig[4])
+    model.embed_many = timers.wrap("embed_many", orig[5])
     reset_launches()
     per_batch, outputs = [], {}
     try:
@@ -726,25 +871,38 @@ def run_main_path(device, n_queries: int = 32,
             check_theta_bounds(queries, results)
             outputs[name] = (queries, results)
             s = svc.last_batch
+            k1 = pareto_ops.LAUNCHES - l0
             row = {"batch": name, "queries": len(queries),
                    "qps": len(queries) / wall, "wall_s": wall,
                    "solved": s.n_solved, "deduped": s.n_deduped,
                    "regressor_rows": model.rows_predicted - rows0,
-                   "pareto_launches": pareto_ops.LAUNCHES - l0,
+                   "pareto_launches": k1,
+                   "pareto_launches_per_solved_query": (
+                       k1 / s.n_solved if s.n_solved else None),
                    "max_memory_bytes": torch.cuda.max_memory_allocated(),
                    "host_s": {k: round(v, 6) for k, v in timers.t.items()},
                    "mean_solve_s": float(np.mean([r.solve_time
                                                   for r in results]))}
             per_batch.append(row)
             log(f"[slice] {json.dumps(row)}")
+            log(f"[slice] {name}: {k1} K1 launches for {s.n_solved} solved "
+                f"queries; masks' host time "
+                f"{timers.t.get('pareto_masks', 0.0):.6f} s of "
+                f"{wall:.6f} s")
+            if k1 > 2 * s.n_solved:
+                raise AssertionError(f"{name}: {k1} K1 launches for "
+                                     f"{s.n_solved} solved queries; at most "
+                                     "2 a query (banks phase, DAG filter)")
     finally:
-        (service_mod.fused_stage_eval, hmooc.pareto_mask_fast) = orig[:2]
+        (service_mod.fused_stage_eval, hmooc.pareto_mask_fast,
+         hmooc.pareto_masks_fast, pareto_pkg.pareto_filter_segments) = \
+            orig[:4]
         del model.predict_rows, model.embed_many
     launches = read_launches()
     require_launches("compile", launches)
     log(f"[slice] cache {svc.cache.stats()}; launches {launches}")
     return {"launches": launches, "batches": per_batch, "model": model,
-            "outputs": outputs}
+            "outputs": outputs, "k1_inputs": largest[0]}
 
 
 def check_runtime_results(queries, cts, results) -> None:
@@ -794,13 +952,19 @@ def run_runtime_path(device, model_subq, compiled: dict) -> dict:
             largest[:] = [(F.clone(), W.clone())]
         return ws_orig(F, W)
 
+    mask_calls = [0]
+
+    def masks_seen(Fs, **kw):
+        mask_calls[0] += 1
+        return masks_orig(Fs, **kw)
+
     orig = (runtime_mod.score_requests, runtime_mod.weighted_pick_batch,
-            runtime_core.pareto_mask_fast, ws_pkg.ws_reduce)
-    ws_orig = orig[3]
+            runtime_core.pareto_masks_fast, ws_pkg.ws_reduce)
+    masks_orig, ws_orig = orig[2], orig[3]
     runtime_mod.score_requests = timers.wrap("score_requests", orig[0])
     runtime_mod.weighted_pick_batch = timers.wrap("weighted_pick_batch",
                                                   orig[1])
-    runtime_core.pareto_mask_fast = timers.wrap("pareto_masks", orig[2])
+    runtime_core.pareto_masks_fast = timers.wrap("pareto_masks", masks_seen)
     ws_pkg.ws_reduce = timers.wrap("ws_reduce", ws_reduce_seen)
     for m in (model_subq, model_qs):      # inside score_requests
         m.embed = timers.wrap("embed", m.embed)
@@ -814,6 +978,7 @@ def run_runtime_path(device, model_subq, compiled: dict) -> dict:
             torch.cuda.reset_peak_memory_stats()
             timers.t.clear()
             shapes.clear()
+            mask_calls[0] = 0
             l0 = read_launches()
             t0 = time.perf_counter()
             results = sess.run_batch(queries, cts)
@@ -822,13 +987,15 @@ def run_runtime_path(device, model_subq, compiled: dict) -> dict:
             check_runtime_results(queries, cts, results)
             s = sess.last_batch
             l1 = read_launches()
+            k1 = l1["pareto_filter"] - l0["pareto_filter"]
             row = {"batch": name, "queries": len(queries), "wall_s": wall,
                    "requests_sent": s.requests_sent,
                    "requests_total": s.requests_total,
                    "rounds": s.rounds, "fused_calls": s.fused_calls,
                    "requests_per_s": s.requests_sent / wall,
-                   "pareto_launches": l1["pareto_filter"]
-                   - l0["pareto_filter"],
+                   "pareto_launches": k1,
+                   "pareto_launches_per_query": k1 / len(queries),
+                   "prefiltering_pick_calls": mask_calls[0],
                    "ws_reduce_launches": l1["ws_reduce"] - l0["ws_reduce"],
                    "ws_reduce_max_shape": ([int(x) for x in
                                             np.max(shapes, axis=0)]
@@ -839,9 +1006,18 @@ def run_runtime_path(device, model_subq, compiled: dict) -> dict:
                        [r.sim.actual_latency[0] for r in results]))}
             per_batch.append(row)
             log(f"[runtime] {json.dumps(row)}")
+            log(f"[runtime] {name}: {k1} K1 launches for {len(queries)} "
+                f"queries in {s.rounds} rounds, {mask_calls[0]} prefiltering "
+                f"weighted_pick_batch calls; masks' host time "
+                f"{timers.t.get('pareto_masks', 0.0):.6f} s of "
+                f"{wall:.6f} s")
+            if k1 > mask_calls[0]:
+                raise AssertionError(f"{name}: {k1} K1 launches for "
+                                     f"{mask_calls[0]} prefiltering picks; "
+                                     "at most one a call")
     finally:
         (runtime_mod.score_requests, runtime_mod.weighted_pick_batch,
-         runtime_core.pareto_mask_fast, ws_pkg.ws_reduce) = orig
+         runtime_core.pareto_masks_fast, ws_pkg.ws_reduce) = orig
         for m in (model_subq, model_qs):
             del m.embed, m.predict
     launches = read_launches()
@@ -899,6 +1075,9 @@ def run_hmooc2_path(device, model, n_queries: int = 32) -> dict:
            "fused_route": routes["fused"],
            "float64_route_tie_guard": routes["float64"],
            "launches": launches,
+           "pareto_launches_per_solved_query": (
+               launches["pareto_filter"] / s.n_solved if s.n_solved
+               else None),
            "max_memory_bytes": torch.cuda.max_memory_allocated(),
            "mean_solve_s": float(np.mean([r.solve_time for r in results]))}
     log(f"[hmooc2] {json.dumps(row)}")
@@ -910,9 +1089,10 @@ def run_hmooc2_path(device, model, n_queries: int = 32) -> dict:
     return {"launches": launches, "row": row, "bank": banks[0]}
 
 
-def lm_prompts(vocab: int, batch: int, length: int, device) -> torch.Tensor:
-    """Token ids made with numpy from seed 0."""
-    rng = np.random.default_rng(0)
+def lm_prompts(vocab: int, batch: int, length: int, device,
+               seed: int = 0) -> torch.Tensor:
+    """Token ids made with numpy from ``seed``."""
+    rng = np.random.default_rng(seed)
     return torch.from_numpy(rng.integers(0, vocab, (batch, length))).to(device)
 
 
@@ -941,6 +1121,68 @@ def generate(model, tokens: torch.Tensor, capacity: int, steps: int):
     if any(c["len"] != S + steps for c in cache):
         raise AssertionError("a layer's cache holds the wrong length")
     return logits, torch.stack(out, 1), t1 - t0, t2 - t1, cache
+
+
+def lm_logit_spread(model, cfg, device, batch: int = LM_BATCH,
+                    prompt: int = LM_PROMPT) -> dict:
+    """The bf16 scoring logits' largest difference from the plain route
+    (the cacheless forward with float32 attention, chunked) on the same
+    weights, for each of LM_SPREAD_SEEDS' prompts and three attention
+    routes in the flash route's place: the tensor-core body, the CUDA-core
+    body (on float32 copies of q, k, v, rounded back to bf16: its 16-bit
+    D <= 128 builds were removed, so the body cannot be forced on bf16
+    inputs), and SDPA.  Measured, not gated: it says whether the tensor-core
+    body lies outside the spread that bf16 layers summing in other orders
+    give."""
+    def simt(q, k, v, causal=True):
+        return flash_ops.flash_attention(q.float(), k.float(), v.float(),
+                                         causal=causal).to(q.dtype)
+
+    routes = {"wgmma": (flash_ops.flash_attention, "wgmma"),
+              "simt": (simt, "simt"),
+              "sdpa": (lambda q, k, v, causal=True: sdpa(q, k, v, causal),
+                       None)}
+    orig = arch_blocks.flash_attention
+    rows = []
+    try:
+        for seed in LM_SPREAD_SEEDS:
+            tokens = lm_prompts(cfg.vocab, batch, prompt, device, seed)
+            with torch.no_grad():
+                model.cfg = cfg.with_(use_flash=False)
+                plain, _ = model(tokens, last_only=True)
+                model.cfg = cfg
+                row = {"seed": seed,
+                       "max_abs_logit": float(plain.float().abs().max())}
+                for name, (fn, body) in routes.items():
+                    arch_blocks.flash_attention = fn
+                    before = dict(flash_ops.LAUNCHES_BY_BODY)
+                    got, _ = model(tokens, last_only=True)
+                    torch.cuda.synchronize()
+                    if body is not None and flash_ops.LAUNCHES_BY_BODY[body] \
+                            - before[body] != cfg.n_layers:
+                        raise AssertionError(f"the {name} route did not take "
+                                             f"the {body} body every layer")
+                    if not torch.isfinite(got).all():
+                        raise AssertionError(f"non-finite {name} logits")
+                    row[name] = float((got.float() - plain.float()).abs()
+                                      .max())
+            rows.append(row)
+            log(f"[lm] logit spread, prompt seed {seed}: bf16 logits minus "
+                f"the plain route's, max |d|: tensor-core body "
+                f"{row['wgmma']:.6g}, CUDA-core body {row['simt']:.6g}, SDPA "
+                f"{row['sdpa']:.6g} (|logit| up to {row['max_abs_logit']:.4g})")
+    finally:
+        arch_blocks.flash_attention = orig
+        model.cfg = cfg
+    others = [r[n] for r in rows for n in ("simt", "sdpa")]
+    lo, hi = min(others), max(others)
+    inside = all(r["wgmma"] <= hi for r in rows)
+    log(f"[lm] logit spread over {len(rows)} prompt seeds: CUDA-core body "
+        f"and SDPA {lo:.6g}-{hi:.6g}; tensor-core body "
+        f"{min(r['wgmma'] for r in rows):.6g}-"
+        f"{max(r['wgmma'] for r in rows):.6g}, "
+        f"{'not above' if inside else 'ABOVE'} the largest of the others")
+    return {"rows": rows, "others_range": [lo, hi], "wgmma_inside": inside}
 
 
 def run_lm_path(device, cfg=None, batch: int = LM_BATCH,
@@ -1030,6 +1272,7 @@ def run_lm_path(device, cfg=None, batch: int = LM_BATCH,
            "flash_vs_plain_bf16_max_logit_diff": diff,
            "max_abs_logit": float(pre_logits.float().abs().max()),
            "next_token_agreement": agree}
+    row["logit_spread"] = lm_logit_spread(model, cfg, device, batch, prompt)
     log(f"[lm] {json.dumps(row)}")
     log(f"[lm] scoring {row['scoring_tokens_per_s']:.1f} tokens/s "
         f"({batch} x {prompt}); prefill {row['prefill_ms']:.3f} ms; decode "
@@ -1183,6 +1426,13 @@ def main() -> int:
     runtime_path = run_runtime_path(device, compile_path["model"],
                                     compile_path["outputs"])
     hmooc2_path = run_hmooc2_path(device, compile_path["model"])
+    k1_err = entries["pareto_filter"]["max_abs_err"]
+    entries["pareto_filter"] = measure_pareto_filter(
+        *compile_path["k1_inputs"], "largest banks-phase launch of the "
+        "compile-time path")
+    entries["pareto_filter"]["max_abs_err"] = max(
+        k1_err, entries["pareto_filter"]["max_abs_err"])
+    measure_crossover(device)
     entries["ws_reduce"] = measure_ws_reduce(*runtime_path["ws_inputs"],
                                              "largest runtime pick")
     entries["ws_reduce"]["max_abs_err"] = max(

@@ -24,7 +24,8 @@ analytic simulator or synthetic functions.
 Hot paths are array-level: every stage_eval call covers a whole
 representative set or candidate population at once (m calls per phase
 instead of C·m), dominance masks route through the CUDA ``pareto_filter``
-kernel on the card (``pareto_mask_fast``), and HMOOC2 routes its
+kernel on the card (``pareto_masks_fast``: the C·m banks of a phase, or
+HMOOC2's per-candidate fronts, in one launch), and HMOOC2 routes its
 per-weight bank argmin to the ``ws_reduce`` kernel and its whole
 aggregation to the ``fused_solve`` kernel above a score-volume threshold.
 
@@ -50,7 +51,8 @@ import torch
 
 from ...device import resolve_device
 from .clustering import kmeans_fit
-from .pareto import _f32_tie_hazard, pareto_mask_fast, pareto_mask_np
+from .pareto import (_f32_tie_hazard, pareto_mask_fast, pareto_mask_np,
+                     pareto_masks_fast)
 
 __all__ = ["HMOOCConfig", "HMOOCResult", "EffectiveSet", "hmooc_solve",
            "HmoocPlan", "subq_tuning", "build_candidates", "dag_aggregate",
@@ -148,10 +150,9 @@ def _crossover(Uc: np.ndarray, n_new: int, d: int,
     return cand[:n_new]
 
 
-def _pareto_bank(F: np.ndarray, cap: int, device: torch.device
-                 ) -> np.ndarray:
-    """Indices of the non-dominated rows of F (capped, best-first)."""
-    mask = pareto_mask_fast(F, device=device)
+def _cap_bank(F: np.ndarray, mask: np.ndarray, cap: int) -> np.ndarray:
+    """Indices of the non-dominated rows of F (``mask``), capped with a
+    spread."""
     idx = np.nonzero(mask)[0]
     if idx.size > cap:
         # Keep a spread: sort by first objective, take evenly spaced.
@@ -229,7 +230,8 @@ def _optimize_rep_banks(
     cfg: HMOOCConfig,
     device: torch.device,
 ) -> Tuple[List[List[np.ndarray]], int, int]:
-    """Line 3: per-representative θp MOO, batched to one eval per subQ.
+    """Line 3: per-representative θp MOO, batched to one eval per subQ and
+    one dominance-filter call (one kernel launch) for all C·m banks.
 
     Returns (opt_idx [C][m], k_obj, n_evals).
     """
@@ -237,13 +239,15 @@ def _optimize_rep_banks(
     opt_idx: List[List[np.ndarray]] = [[] for _ in range(C)]
     k_obj = 2
     n_evals = 0
+    banks: List[np.ndarray] = []                 # subQ-major: (i, r)
     for i, Tc, Tp in _rep_bank_requests(m, eset):
         F = stage_eval(i, Tc, Tp)
         n_evals += F.shape[0]
         k_obj = F.shape[1]
-        Fr = F.reshape(C, P, k_obj)
-        for r in range(C):
-            opt_idx[r].append(_pareto_bank(Fr[r], cfg.max_bank, device))
+        banks.extend(F.reshape(C, P, k_obj))
+    masks = pareto_masks_fast(banks, device=device)
+    for b, (F, mask) in enumerate(zip(banks, masks)):
+        opt_idx[b % C].append(_cap_bank(F, mask, cfg.max_bank))
     return opt_idx, k_obj, n_evals
 
 
@@ -472,16 +476,17 @@ def _hmooc2_all(F_bank: np.ndarray, idx_bank: np.ndarray, n_weights: int,
     S = idx_bank[cc, ii, jj]                             # (N, nw, m)
     ok = np.isfinite(G).all(axis=(2, 3))                 # (N, nw)
     P_all = G.sum(axis=2)                                # (N, nw, k)
+    rows = [np.nonzero(ok[c])[0] for c in range(N)]
+    live = [c for c in range(N) if rows[c].size]
+    masks = dict(zip(live, pareto_masks_fast(
+        [P_all[c, rows[c]] for c in live], device=device)))
     out: List[Tuple[np.ndarray, np.ndarray]] = []
     for c in range(N):
-        rows = np.nonzero(ok[c])[0]
-        if rows.size == 0:
+        if c not in masks:
             out.append((np.zeros((0, k)), np.zeros((0, m), int)))
             continue
-        P = P_all[c, rows]
-        mask = pareto_mask_fast(P, device=device)
-        keep = np.nonzero(mask)[0]
-        out.append((P[keep], S[c, rows][keep]))
+        keep = rows[c][masks[c]]
+        out.append((P_all[c, keep], S[c, keep]))
     return out
 
 

@@ -8,16 +8,18 @@ Two implementations of dominance filtering are provided:
 * :func:`pareto_mask_np` — plain numpy in float64, host-side.
 * ``repro_torch.kernels.pareto_filter`` — the CUDA kernel with the same
   semantics, comparing in float32 (imported lazily in
-  :func:`_pareto_mask_kernel`).
+  :func:`_pareto_masks_kernel`).
 
-:func:`pareto_mask_fast` routes between them.  Also includes Kung's
+:func:`pareto_mask_fast` routes one mask between them and
+:func:`pareto_masks_fast` a batch of independent banks, whose kernel route
+is one launch.  Also includes Kung's
 O(n log n) algorithm for k=2 (host-side oracle) and hypervolume
 computation used by the benchmarks.
 """
 from __future__ import annotations
 
 import os
-from typing import Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -27,6 +29,7 @@ from ...device import resolve_device
 __all__ = [
     "pareto_mask_np",
     "pareto_mask_fast",
+    "pareto_masks_fast",
     "kung_2d_np",
     "filter_dominated_np",
     "hypervolume_2d",
@@ -120,44 +123,116 @@ def pareto_mask_fast(F: np.ndarray, valid: Optional[np.ndarray] = None, *,
     pure function of the input values rather than of the route the batch
     happened to take.
     """
+    return pareto_masks_fast(
+        [F], None if valid is None else [valid], device=device)[0]
+
+
+def pareto_masks_fast(Fs: Sequence[np.ndarray],
+                      valid: Optional[Sequence[Optional[np.ndarray]]] = None,
+                      *, device=None) -> List[np.ndarray]:
+    """Dominance masks of independent banks, the kernel route in one launch.
+
+    Element for element equal to ``[pareto_mask_fast(F, v, device=device)
+    for F, v in zip(Fs, valid)]``: routing stays per bank.  A bank below
+    the threshold, empty, or flagged by the float32 tie check takes the
+    float64 numpy path; the rest are padded with invalid rows to one
+    power-of-two bucket (at least 128 rows), copied to the card in one
+    transfer, filtered by one kernel launch and copied back once.  The
+    per-bank host work (validity, padding, tie check) runs over the stack.
+    Every bank holds (n_b, k) objectives with one k.
+    """
     device = resolve_device(device)
-    F = np.asarray(F, np.float64)
-    n = F.shape[0]
+    Fs = [np.asarray(F, np.float64) for F in Fs]
+    if valid is None:
+        valid = [None] * len(Fs)
+    elif len(valid) != len(Fs):
+        raise ValueError(f"got {len(valid)} validity masks for {len(Fs)} "
+                         "banks")
     thr = _KERNEL_MIN_N if _KERNEL_MIN_N is not None \
         else _default_kernel_min_n(device)
-    if n < thr or n == 0:
-        return pareto_mask_np(F, valid)
-    if _f32_tie_hazard(F):
-        return pareto_mask_np(F, valid)
-    return _pareto_mask_kernel(F, valid, device)
+    out: List[Optional[np.ndarray]] = [None] * len(Fs)
+    big = []
+    for b, F in enumerate(Fs):
+        if F.shape[0] >= max(thr, 1):
+            big.append(b)
+        else:
+            out[b] = pareto_mask_np(F, valid[b])
+    if big:
+        ks = {Fs[b].shape[1] for b in big}
+        if len(ks) != 1:
+            raise ValueError(f"banks hold different objective counts {ks}")
+        k = ks.pop()
+        sizes = np.array([Fs[b].shape[0] for b in big])
+        cat = np.concatenate([Fs[b] for b in big])
+        finite = np.isfinite(cat)
+        v = finite.all(-1)
+        if any(valid[b] is not None for b in big):
+            v &= np.concatenate([np.ones(n, bool) if valid[b] is None
+                                 else np.asarray(valid[b], bool)
+                                 for b, n in zip(big, sizes)])
+        cat[~finite] = np.inf
+        # Bank b fills the first sizes[b] rows of its segment; a boolean
+        # mask assigns them in the concatenation's order, one row (viewed
+        # as a single k-float item) at a time.
+        slots = np.arange(_bucket(sizes.max())) < sizes[:, None]
+        X = np.full(slots.shape + (k,), np.inf)
+        row = np.dtype((np.void, 8 * k))
+        X.view(row)[..., 0][slots] = cat.view(row)[:, 0]
+        vp = np.zeros(slots.shape, bool)
+        vp[slots] = v
+        hazard = _f32_tie_hazards(X)
+        for i in np.nonzero(hazard)[0]:
+            out[big[i]] = pareto_mask_np(Fs[big[i]], valid[big[i]])
+        on_kernel = np.nonzero(~hazard)[0]
+        if on_kernel.size:
+            nb = _bucket(sizes[on_kernel].max())
+            masks = _pareto_masks_kernel(X[on_kernel, :nb],
+                                         vp[on_kernel, :nb], device)
+            for i, mask in zip(on_kernel, masks):
+                out[big[i]] = mask[:sizes[i]]
+    return out
+
+
+def _bucket(n: int) -> int:
+    """Rows a kernel stack is padded to: a power of two, at least 128."""
+    return max(128, 1 << int(np.ceil(np.log2(max(n, 2)))))
+
+
+def _f32_tie_hazards(X: np.ndarray) -> np.ndarray:
+    """(S,) bool over an (S, n, k) stack: True where some column of a
+    segment holds finite values that are distinct in float64 but tie as
+    float32.  Rounding to float32 is monotone, so such a pair exists iff
+    two neighbours of the sorted column do."""
+    Xs = np.sort(np.where(np.isfinite(X), X, np.inf), axis=1)
+    a, b = Xs[:, :-1], Xs[:, 1:]
+    with np.errstate(over="ignore"):
+        tie = np.isfinite(b) & (a != b) \
+            & (a.astype(np.float32) == b.astype(np.float32))
+    return tie.any(axis=(1, 2))
 
 
 def _f32_tie_hazard(F: np.ndarray) -> bool:
     """True if float64-distinct values in some column tie as float32."""
-    for j in range(F.shape[1]):
-        col = F[:, j]
-        u = np.unique(col[np.isfinite(col)])
-        if np.unique(u.astype(np.float32)).size < u.size:
-            return True
-    return False
+    return bool(_f32_tie_hazards(np.asarray(F, np.float64)[None])[0])
 
 
-def _pareto_mask_kernel(F: np.ndarray, valid: Optional[np.ndarray],
-                        device: torch.device) -> np.ndarray:
-    from ...kernels.pareto_filter import pareto_filter  # lazy: kernel layer
-    n, k = F.shape
-    if valid is None:
-        v = np.isfinite(F).all(-1)
-    else:
-        v = np.asarray(valid, bool) & np.isfinite(F).all(-1)
-    bucket = max(128, 1 << int(np.ceil(np.log2(max(n, 2)))))
-    Fp = np.full((bucket, k), np.inf, np.float32)
-    Fp[:n] = np.where(np.isfinite(F), F, np.inf)
-    vp = np.zeros(bucket, bool)
-    vp[:n] = v
-    mask = pareto_filter(torch.from_numpy(Fp).to(device),
-                         torch.from_numpy(vp).to(device))
-    return mask[:n].cpu().numpy()
+def _pareto_masks_kernel(X: np.ndarray, v: np.ndarray, device: torch.device
+                         ) -> np.ndarray:
+    """(S, bucket) masks of the padded float64 stack ``X`` (S, bucket, k)
+    under validity ``v``: F (cast to float32) and ``v`` share one staging
+    buffer, pinned when bound for the card, so one copy moves both."""
+    from ...kernels.pareto_filter import pareto_filter_segments  # lazy
+    S, bucket, k = X.shape
+    nF = S * bucket * k * 4
+    buf = torch.empty(nF + S * bucket, dtype=torch.uint8,
+                      pin_memory=device.type == "cuda")
+    host = buf.numpy()
+    host[:nF].view(np.float32).reshape(X.shape)[...] = X
+    host[nF:].view(np.bool_).reshape(v.shape)[...] = v
+    buf = buf.to(device, non_blocking=True)
+    F32 = buf[:nF].view(torch.float32).view(S, bucket, k)
+    valid = buf[nF:].view(torch.bool).view(S, bucket)
+    return pareto_filter_segments(F32, valid).cpu().numpy()
 
 
 def kung_2d_np(F: np.ndarray) -> np.ndarray:

@@ -43,7 +43,7 @@ from ...queryengine.trace import _alpha_stats
 from ..models.perf_model import PerfModel, make_nondecision
 from ..moo import hmooc as _hmooc
 from ..moo import pareto as _pareto
-from ..moo.pareto import pareto_mask_fast
+from ..moo.pareto import pareto_masks_fast
 from .objectives import resource_rate
 from .spark_space import theta_c_space, theta_p_space, theta_s_space
 
@@ -148,8 +148,9 @@ def weighted_pick_batch(Fs: Sequence[np.ndarray], weights, *,
     volume, which can route a group to numpy f64 where the homogeneous
     batch would hit the f32 kernel.
 
-    Per set: dominated rows are dropped (``pareto_mask_fast`` — the CUDA
-    ``pareto_filter`` kernel above ``REPRO_PARETO_KERNEL_MIN_N``), all rows
+    Per set: dominated rows are dropped (``pareto_masks_fast`` — the CUDA
+    ``pareto_filter`` kernel above ``REPRO_PARETO_KERNEL_MIN_N``, one launch
+    for every set of the call whatever the weights), all rows
     are min-max normalized over the full set, and the weighted-sum argmin
     over the survivors routes through the ``ws_reduce`` kernel when the
     fused score volume (sets × bank) clears ``REPRO_WS_KERNEL_MIN_SCORES``
@@ -169,39 +170,54 @@ def weighted_pick_batch(Fs: Sequence[np.ndarray], weights, *,
     if R == 0:
         return []
     w = np.asarray(weights, np.float64)
-    if w.ndim == 2:
-        if w.shape[0] != R:
-            raise ValueError(
-                f"got {w.shape[0]} weight rows for {R} candidate sets")
-        groups: Dict[tuple, List[int]] = {}
-        for r, row in enumerate(map(tuple, w.tolist())):
-            groups.setdefault(row, []).append(r)
-        if len(groups) == 1:
-            return weighted_pick_batch(Fs, next(iter(groups)), device=device)
-        out = [0] * R
-        for row, idxs in groups.items():
-            for i, j in zip(idxs, weighted_pick_batch([Fs[i] for i in idxs],
-                                                      row, device=device)):
-                out[i] = j
-        return out
+    if w.ndim == 2 and w.shape[0] != R:
+        raise ValueError(f"got {w.shape[0]} weight rows for {R} candidate sets")
+    Fs = [np.asarray(F, np.float64) for F in Fs]
+    kept = _prefilter(Fs, device)
+    if w.ndim != 2:
+        return _pick(Fs, kept, w, device)
+    groups: Dict[tuple, List[int]] = {}
+    for r, row in enumerate(map(tuple, w.tolist())):
+        groups.setdefault(row, []).append(r)
+    out = [0] * R
+    for row, idxs in groups.items():
+        for i, j in zip(idxs, _pick([Fs[i] for i in idxs],
+                                    [kept[i] for i in idxs],
+                                    np.asarray(row, np.float64), device)):
+            out[i] = j
+    return out
+
+
+def _prefilter(Fs: List[np.ndarray], device: torch.device
+               ) -> List[np.ndarray]:
+    """Rows of each set that a weighted pick may choose: the non-dominated
+    ones, from one ``pareto_masks_fast`` call (one kernel launch) over the
+    sets at or above the kernel threshold; every row of a smaller set, or
+    of a set whose mask keeps nothing."""
     # Dominance prefiltering only pays when the set is large enough to hit
     # the kernel; below the threshold the weighted argmin alone is already
     # exact (a dominated row cannot win the weighted sum).
     thr = _pareto._KERNEL_MIN_N if _pareto._KERNEL_MIN_N is not None \
         else _pareto._default_kernel_min_n(device)
-    kept: List[np.ndarray] = []
+    big = [r for r, F in enumerate(Fs) if F.shape[0] >= thr]
+    masks = dict(zip(big, pareto_masks_fast([Fs[r] for r in big],
+                                            device=device)))
+    kept = []
+    for r, F in enumerate(Fs):
+        keep = np.nonzero(masks[r])[0] if r in masks else np.zeros(0, int)
+        kept.append(keep if keep.size else np.arange(F.shape[0]))
+    return kept
+
+
+def _pick(Fs: List[np.ndarray], kept: List[np.ndarray], w: np.ndarray,
+          device: torch.device) -> List[int]:
+    """Weighted-sum argmin over each set's kept rows, all rows min-max
+    normalized over the full set, under one weight vector."""
+    R = len(Fs)
     Fn_kept: List[np.ndarray] = []
-    for F in Fs:
-        F = np.asarray(F, np.float64)
+    for F, keep in zip(Fs, kept):
         lo, hi = F.min(0), F.max(0)
         span = np.where(hi > lo, hi - lo, 1.0)
-        if F.shape[0] >= thr:
-            keep = np.nonzero(pareto_mask_fast(F, device=device))[0]
-            if keep.size == 0:
-                keep = np.arange(F.shape[0])
-        else:
-            keep = np.arange(F.shape[0])
-        kept.append(keep)
         Fn_kept.append((F[keep] - lo) / span)
     k = Fn_kept[0].shape[1]
     B = max(f.shape[0] for f in Fn_kept)

@@ -14,12 +14,14 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.archs.registry import build_model, get_smoke_config
 from repro_torch.core.moo.hmooc import HMOOCConfig
+from repro_torch.core.moo.pareto import pareto_mask_np, pareto_masks_fast
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.fused_solve import ops as fused_ops
 from repro_torch.kernels.fused_solve.ref import fused_ws_front_ref
 from repro_torch.kernels.pareto_filter import ops as pareto_ops
-from repro_torch.kernels.pareto_filter.ref import pareto_mask_ref
+from repro_torch.kernels.pareto_filter.ref import (pareto_mask_ref,
+                                                   pareto_masks_ref)
 from repro_torch.kernels.ws_reduce import ops as ws_ops
 from repro_torch.kernels.ws_reduce.ref import ws_reduce_ref
 from repro_torch.queryengine.workloads import serving_stream
@@ -83,6 +85,100 @@ def test_pareto_filter_kernel_matches_plain_version_on_front(cuda_device, n,
     got = pareto_ops.pareto_filter(Ft, vt)
     torch.cuda.synchronize()
     np.testing.assert_array_equal(got.cpu().numpy(), want)
+
+
+# (S, n, k): one Algorithm 1 bank, a phase's banks (5 and 9 representatives
+# x 10 subQs), a runtime round's candidate sets, K3's global filter at the
+# largest HMOOC2 bank, and two long segments at k = 8.
+SEGMENT_SHAPES = [(1, 256, 2), (50, 256, 2), (90, 256, 2), (32, 66, 2),
+                  (3, 1408, 2), (2, 4096, 8)]
+
+
+def _segment_case(S, n, k, seed, layout):
+    """f32 objectives, uniform or near one trade-off surface (most rows
+    survive); for S > 2 segment 1 is ragged (its tail padded with invalid
+    +inf rows), and for S > 1 the last segment is all invalid."""
+    rng = np.random.default_rng(seed)
+    if layout == "front":
+        F = rng.dirichlet(np.ones(k), (S, n)) * 10 \
+            + rng.random((S, n, k)) * 1e-3
+    else:
+        F = rng.random((S, n, k)) * 10
+    F = F.astype(np.float32)
+    F[rng.random((S, n)) < 0.05] = np.inf
+    valid = (rng.random((S, n)) > 0.1) & np.isfinite(F).all(-1)
+    if S > 2:
+        F[1, n // 3:] = np.inf
+        valid[1, n // 3:] = False
+    if S > 1:
+        valid[-1] = False
+    return F, valid
+
+
+@pytest.mark.parametrize("layout", ["uniform", "front"])
+@pytest.mark.parametrize("S,n,k", SEGMENT_SHAPES)
+def test_pareto_filter_segments_kernel_matches_plain_version(
+        cuda_device, S, n, k, layout):
+    F, valid = _segment_case(S, n, k, seed=S * 1000 + n + k, layout=layout)
+    Ft = torch.from_numpy(F).to(cuda_device)
+    vt = torch.from_numpy(valid).to(cuda_device)
+    before = pareto_ops.LAUNCHES
+    got = pareto_ops.pareto_filter_segments(Ft, vt)
+    torch.cuda.synchronize()
+    assert pareto_ops.LAUNCHES == before + 1
+    want = pareto_masks_ref(Ft, vt).cpu().numpy()
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+    if S > 1:
+        assert not got[-1].any()
+
+
+def test_pareto_filter_segments_ragged_unaligned(cuda_device):
+    """Segments whose rows times k is not a multiple of 4 (the kernel's
+    4-byte copies), padded from ragged banks: each segment equals the
+    single-segment launch and the plain version on that bank alone."""
+    rng = np.random.default_rng(5)
+    sizes, k = [33, 1, 300, 0, 257], 3
+    n = max(sizes)
+    F = np.full((len(sizes), n, k), np.inf, np.float32)
+    valid = np.zeros((len(sizes), n), bool)
+    for s, m in enumerate(sizes):
+        F[s, :m] = rng.random((m, k)) * 10
+        valid[s, :m] = rng.random(m) > 0.1
+    Ft = torch.from_numpy(F).to(cuda_device)
+    vt = torch.from_numpy(valid).to(cuda_device)
+    got = pareto_ops.pareto_filter_segments(Ft, vt).cpu().numpy()
+    for s, m in enumerate(sizes):
+        one = pareto_ops.pareto_filter(Ft[s, :m], vt[s, :m]).cpu().numpy()
+        want = pareto_mask_ref(Ft[s, :m], vt[s, :m]).cpu().numpy()
+        np.testing.assert_array_equal(got[s, :m], want)
+        np.testing.assert_array_equal(one, want)
+        assert not got[s, m:].any()
+
+
+def test_pareto_masks_fast_one_launch_on_card(cuda_device):
+    """A batch of f32-representable, tie-free banks: one launch, and every
+    mask equals the float64 numpy mask."""
+    rng = np.random.default_rng(9)
+    banks = [(rng.random((n, 2)) * 10).astype(np.float32).astype(np.float64)
+             for n in (256, 256, 66, 130, 1)]
+    banks[1][[3, 8]] = np.inf
+    before = pareto_ops.LAUNCHES
+    got = pareto_masks_fast(banks, device=cuda_device)
+    assert pareto_ops.LAUNCHES == before + 1
+    for F, g in zip(banks, got):
+        np.testing.assert_array_equal(g, pareto_mask_np(F))
+
+
+def test_compile_time_solve_two_launches_per_query(cuda_device):
+    """Each solved query filters its banks phase in one launch and its DAG
+    aggregation in one more."""
+    cfg = HMOOCConfig(n_c_init=16, n_clusters=4, n_p_pool=48, n_c_enrich=12,
+                      max_bank=12, seed=3)
+    svc = TuningService(cfg=cfg, device=cuda_device)
+    before = pareto_ops.LAUNCHES
+    svc.tune_batch(serving_stream("tpch", 6, seed=5))
+    solved = svc.last_batch.n_solved
+    assert 0 < pareto_ops.LAUNCHES - before <= 2 * solved
 
 
 def test_oracle_service_card_equals_host(cuda_device):

@@ -10,9 +10,11 @@ torch = pytest.importorskip("torch")
 
 from repro.core.moo import clustering as ref_clustering
 from repro.core.moo import hmooc as ref_hmooc
+from repro.core.moo import pareto as ref_pareto
 from repro.core.moo import wun as ref_wun
 from repro_torch.core.moo import clustering as port_clustering
 from repro_torch.core.moo import hmooc as port_hmooc
+from repro_torch.core.moo import pareto as port_pareto
 from repro_torch.core.moo import wun as port_wun
 
 CFG_KW = dict(n_c_init=12, n_clusters=3, n_p_pool=32, n_c_enrich=8,
@@ -73,6 +75,45 @@ def test_hmoocplan_matches_reference_solve():
         plan.feed([stage_eval(i, Tc, Tps) for i, Tc, Tps in plan.requests()])
     ra = ref_hmooc.hmooc_solve(stage_eval, m=3, d_c=2, d_ps=2,
                                cfg=ref_hmooc.HMOOCConfig(**CFG_KW))
+    _assert_results_equal(ra, plan.result)
+
+
+@pytest.mark.parametrize("method", ["hmooc2", "hmooc3"])
+def test_hmoocplan_forced_kernel_routing_matches_reference(method,
+                                                           monkeypatch):
+    """Every mask on the kernel route (the port's plain version, the
+    reference's Pallas kernel in interpret mode): the banks phase makes one
+    ``pareto_masks_fast`` call for its C·m banks, HMOOC2 one for its
+    per-candidate fronts, and ``opt_idx`` and the results equal the
+    reference's per-bank solve."""
+    monkeypatch.setattr(ref_pareto, "_KERNEL_MIN_N", 0)
+    monkeypatch.setattr(port_pareto, "_KERNEL_MIN_N", 0)
+    calls = []
+    real = port_hmooc.pareto_masks_fast
+
+    def spy(Fs, **kw):
+        calls.append(len(Fs))
+        return real(Fs, **kw)
+
+    monkeypatch.setattr(port_hmooc, "pareto_masks_fast", spy)
+    m = 3
+    plan = port_hmooc.HmoocPlan(
+        m, 2, 2, port_hmooc.HMOOCConfig(dag_method=method, **CFG_KW),
+        device="cpu")
+    plan.feed([stage_eval(i, Tc, Tps) for i, Tc, Tps in plan.requests()])
+    assert calls == [CFG_KW["n_clusters"] * m]
+    plan.feed([stage_eval(i, Tc, Tps) for i, Tc, Tps in plan.requests()])
+    assert plan.done
+    assert len(calls) == (2 if method == "hmooc2" else 1)
+    ra = ref_hmooc.hmooc_solve(
+        stage_eval, m=m, d_c=2, d_ps=2,
+        cfg=ref_hmooc.HMOOCConfig(dag_method=method, **CFG_KW))
+    want, got = ra.effective_set.opt_idx, plan.result.effective_set.opt_idx
+    assert len(got) == len(want)
+    for a, b in zip(want, got):
+        assert len(a) == len(b) == m
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(x, y)
     _assert_results_equal(ra, plan.result)
 
 

@@ -189,6 +189,31 @@ def test_weighted_pick_batch_equal(per_set, routing):
                        for F, row in zip(Fs, w)]
 
 
+def test_weighted_pick_batch_one_mask_call_forced(monkeypatch):
+    """Forced kernel routing: every set clears the threshold, and one
+    ``pareto_masks_fast`` call filters all of them, whatever the weight
+    groups; the picks equal the reference's per-set masks (Pallas in
+    interpret mode)."""
+    for mod, name in ((ref_pareto, "_KERNEL_MIN_N"),
+                      (port_pareto, "_KERNEL_MIN_N")):
+        monkeypatch.setattr(mod, name, 0)
+    calls = []
+    real = port_rt.pareto_masks_fast
+
+    def spy(Fs, **kw):
+        calls.append(len(Fs))
+        return real(Fs, **kw)
+
+    monkeypatch.setattr(port_rt, "pareto_masks_fast", spy)
+    Fs = _sets(seed=4) + _sets(seed=5)
+    w = np.array([[0.9, 0.1], [0.5, 0.5], [0.2, 0.8], [0.9, 0.1]] * 2)
+    for weights in (WEIGHTS, w):
+        calls.clear()
+        got = port_rt.weighted_pick_batch(Fs, weights, device=CPU)
+        assert calls == [len(Fs)]
+        assert got == ref_rt.weighted_pick_batch(Fs, weights)
+
+
 def test_weighted_pick_batch_rejects_misaligned_weights():
     with pytest.raises(ValueError, match="weight rows"):
         port_rt.weighted_pick_batch(_sets(), np.ones((3, 2)), device=CPU)
