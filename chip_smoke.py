@@ -24,7 +24,12 @@ and read just after; the script fails if a kernel of a path was not
 launched there, if a compile-time stream makes more than 2
 ``pareto_filter`` launches per solved query (one for the banks phase, one
 for the DAG filter), or if a runtime batch makes more than one per
-prefiltering ``weighted_pick_batch`` call.  It also prints the crossover
+prefiltering ``weighted_pick_batch`` call.  On the HMOOC2 path it counts
+each aggregation's host time and host synchronisations, holds the
+router's on-card tie flag against ``_f32_tie_hazard`` on every bank the
+batch checked, and times the fused kernel (which normalises the staged
+bank itself) per call and the caller's whole aggregation at the batch's
+largest bank.  It also prints the crossover
 between one float64 numpy mask and one kernel launch with its copies, and
 the spread of the LM's bfloat16 logits over three prompt seeds for both
 flash-attention bodies and SDPA.  It checks the results of every path and the card's
@@ -41,10 +46,12 @@ script fails before it prints any result.  It imports nothing of JAX.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
 import time
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -149,6 +156,9 @@ WS_SHAPES = [(1, 8, 2, 3), (4, 130, 2, 11), (3, 48, 3, 33), (2, 256, 4, 128),
 # and timed after that batch.
 FUSED_SHAPES = [(1, 1, 2, 2, 3), (3, 2, 8, 2, 11), (7, 3, 16, 2, 6),
                 (33, 5, 4, 2, 4), (5, 3, 4, 2, 6)]
+# Banks past the kernel's shared-memory budget: tiles of subQs, and chunks
+# of one subQ's bank rows (k = 2 and k = 8).
+FUSED_TILED = [(4, 40, 64, 2, 11), (3, 3, 2200, 2, 11), (3, 5, 900, 8, 6)]
 # The LM path: 4 requests of 2048 prompt tokens, 32 generated tokens each,
 # in a cache of 2080 slots.
 LM_ARCH = "glm4-9b"
@@ -564,95 +574,207 @@ def fused_case(N: int, m: int, B: int, k: int, nw: int, seed: int):
     if N > 2 and m > 1:
         Fb[2, 1] = np.inf
     W = np.stack([np.linspace(0.05, 0.95, nw),
-                  1.0 - np.linspace(0.05, 0.95, nw)], -1)
+                  1.0 - np.linspace(0.05, 0.95, nw)], -1) if k == 2 \
+        else rng.dirichlet(np.ones(k), nw)
     return hmooc._hmooc2_normalize(Fb), Fb, W
 
 
+def host_scores(Fb: np.ndarray) -> np.ndarray:
+    """The solver's float32 scores, normalised on the host in float64."""
+    with np.errstate(over="ignore", invalid="ignore"):
+        return np.nan_to_num(hmooc._hmooc2_normalize(Fb).astype(np.float32),
+                             posinf=1e30)
+
+
 def fused_plain(Fn, Fb, W, device):
-    """The plain version on the card, on the wrapper's own inputs."""
-    Fn32 = np.nan_to_num(np.asarray(Fn, np.float32), posinf=1e30)
+    """The plain version on the card: on ``Fn`` or, for ``Fn=None``, on
+    the host-normalised scores of the bank."""
+    Fn = host_scores(Fb) if Fn is None else Fn
     return [t.cpu().numpy() for t in fused_ws_front_ref(
         *(torch.from_numpy(np.ascontiguousarray(a)).to(device)
-          for a in (Fn32, np.asarray(Fb, np.float64),
-                    np.asarray(W, np.float32))))]
+          for a in (Fn, Fb, W)))]
+
+
+def fused_card(Fn, Fb, W, device):
+    """The wrapper on the card (the bank already staged there), read back."""
+    return [t.cpu().numpy() for t in fused_ops.fused_ws_front(
+        Fn, torch.from_numpy(np.ascontiguousarray(Fb)).to(device), W,
+        device=device)]
 
 
 def check_fused_case(Fn, Fb, W, device, label: str) -> float:
-    jj, P_all, keep = fused_ops.fused_ws_front(Fn, Fb, W, device=device)
-    jr, Pr, kr = fused_plain(Fn, Fb, W, device)
-    if not (np.array_equal(jj, jr) and np.array_equal(keep, kr)):
-        raise AssertionError(f"fused_solve picks or mask differ from the "
-                             f"plain version ({label})")
-    fin = np.isfinite(Pr)
-    if not (np.array_equal(fin, np.isfinite(P_all))
-            and np.allclose(P_all[fin], Pr[fin], rtol=1e-12, atol=0.0)):
-        raise AssertionError(f"fused_solve sums differ from the plain "
-                             f"version ({label})")
-    if not np.isfinite(P_all[keep]).all():
-        raise AssertionError(f"fused_solve kept an invalid point ({label})")
-    return float(np.abs(P_all[fin] - Pr[fin]).max()) if fin.any() else 0.0
+    """Given scores and ``Fn=None`` (normalised in the kernel), each
+    against the plain version: picks and mask exact, sums within rtol
+    1e-12, nothing invalid kept, one launch of each kernel a call."""
+    worst = 0.0
+    for given in (Fn, None):
+        l0 = fused_ops.LAUNCHES, pareto_ops.LAUNCHES
+        jj, P_all, keep = fused_card(given, Fb, W, device)
+        if (fused_ops.LAUNCHES, pareto_ops.LAUNCHES) != (l0[0] + 1,
+                                                         l0[1] + 1):
+            raise AssertionError("fused_ws_front did not launch each kernel "
+                                 f"once ({label})")
+        jr, Pr, kr = fused_plain(given, Fb, W, device)
+        how = "Fn=None" if given is None else "Fn given"
+        if not (np.array_equal(jj, jr) and np.array_equal(keep, kr)):
+            raise AssertionError(f"fused_solve picks or mask differ from the "
+                                 f"plain version ({label}, {how})")
+        fin = np.isfinite(Pr)
+        if not (np.array_equal(fin, np.isfinite(P_all))
+                and np.allclose(P_all[fin], Pr[fin], rtol=1e-12, atol=0.0)):
+            raise AssertionError(f"fused_solve sums differ from the plain "
+                                 f"version ({label}, {how})")
+        if not np.isfinite(P_all[keep]).all():
+            raise AssertionError(f"fused_solve kept an invalid point "
+                                 f"({label}, {how})")
+        if fin.any():
+            worst = max(worst, float(np.abs(P_all[fin] - Pr[fin]).max()))
+    return worst
 
 
 def check_fused_solve(device) -> float:
-    """Every FUSED_SHAPES case, checked and timed."""
+    """Every FUSED_SHAPES case, checked and timed; the normalisation's edge
+    cases; banks past the kernel's shared-memory budget (FUSED_TILED)."""
     worst = 0.0
     for i, shape in enumerate(FUSED_SHAPES):
         worst = max(worst, measure_fused_solve(
             *fused_case(*shape, seed=300 + i), device,
             "synthetic")["max_abs_err"])
+    Fn, Fb, W = fused_case(9, 4, 12, 2, 11, seed=310)
+    Fb[3] = np.inf                          # no finite entry
+    Fb[4, :, :, 1] = 2.5                    # a constant objective
+    Fb[5, 1, 2, 0] = np.nan
+    Fb[6, :, :, 0] *= 1e300                 # huge values, float32 overflow
+    worst = max(worst, check_fused_case(host_scores(Fb), Fb, W, device,
+                                        "edge cases"))
+    for i, shape in enumerate(FUSED_TILED):
+        worst = max(worst, check_fused_case(
+            *fused_case(*shape, seed=320 + i), device,
+            f"tiled bank {shape}"))
     log(f"[kernels] fused_solve == plain version on {len(FUSED_SHAPES)} "
-        "cases (picks and mask exact, sums within rtol 1e-12)")
+        f"cases, the normalisation's edge cases and {len(FUSED_TILED)} "
+        "banks past the shared-memory budget, with given scores and with "
+        "Fn=None (picks and mask exact, sums within rtol 1e-12)")
     return worst
 
 
-def fused_bound_ms(Fn, W, jj, keep, valid):
-    """Bytes: Fn read once (f32), W once, only the picked raw rows of the
-    bank (f64, distinct (candidate, subQ, row) triples), and jj, P_all and
-    keep written once.  Operations: 2k per weighted score and its compare,
-    the float64 sums, 2k per local pair test among each candidate's valid
-    picks, and the global filter's pair tests as for pareto_filter."""
-    N, m, B, k = Fn.shape
+def check_tie_flag(device, recorded) -> None:
+    """The router's on-card tie flag against ``_f32_tie_hazard``: on a
+    planted tie and on every bank the HMOOC2 batch checked (``recorded``:
+    (staged rows, flag) pairs)."""
+    rng = np.random.default_rng(330)
+    X = (rng.random((72576, 2)) * 10).astype(np.float32).astype(np.float64)
+    X[::9] = np.inf
+    for planted in (False, True):
+        if planted:
+            X[60000, 1] = X[17, 1] + 1e-12
+        got = bool(pareto_core._f32_tie_hazard_tensor(
+            torch.from_numpy(X).to(device)))
+        if got != pareto_core._f32_tie_hazard(X) or got != planted:
+            raise AssertionError(f"on-card tie flag {got} on a bank with"
+                                 f"{'' if planted else 'out'} a planted tie")
+    for F, flag in recorded:
+        if bool(flag) != pareto_core._f32_tie_hazard(F.cpu().numpy()):
+            raise AssertionError("the on-card tie flag differs from "
+                                 "_f32_tie_hazard on a bank of the HMOOC2 "
+                                 "batch")
+    log(f"[check] on-card tie flag == _f32_tie_hazard on a planted tie and "
+        f"on all {len(recorded)} banks of the HMOOC2 batch "
+        f"({sum(bool(f) for _, f in recorded)} with a hazard)")
+
+
+def fused_bound_ms(Fb, W, jj, keep, valid, normalise: bool = True):
+    """Bytes: the raw bank read once (f64), W once (f64), and jj, P_all
+    and keep written once; with ``normalise=False`` (the earlier count,
+    for the kernel that took host-normalised scores, kept beside it) Fn
+    read once (f32), W (f32) and only the picked raw rows (distinct
+    (candidate, subQ, row) triples) instead of the whole bank.
+    Operations: the normalisation (a min and a max compare, a subtract and
+    a divide per element), 2k per weighted score and its compare, the
+    float64 sums, 2k per local pair test among each candidate's valid
+    picks, and the global filter's pair tests as for pareto_filter.  All
+    at the float32 rate of the table."""
+    N, m, B, k = Fb.shape
     nw = W.shape[0]
     rows = (np.arange(N)[:, None, None] * m
             + np.arange(m)[None, None, :]) * B + jj
-    n_bytes = (Fn.size * 4 + W.size * 4 + np.unique(rows).size * k * 8
-               + jj.size * 4 + N * nw * k * 8 + N * nw)
+    out_bytes = jj.size * 4 + N * nw * k * 8 + N * nw
+    n_bytes = (Fb.size * 8 if normalise
+               else Fb.size * 4 + np.unique(rows).size * k * 8) \
+        + W.size * (8 if normalise else 4) + out_bytes
     V = int(valid.sum())
     S = int(keep.sum())
-    ops = (2 * k * nw * N * m * B + N * nw * m * k
-           + 2 * k * nw * nw * N + 2 * k * (S * V + (V - S)))
+    ops = (4 * Fb.size * normalise + 2 * k * nw * N * m * B
+           + N * nw * m * k + 2 * k * nw * nw * N + 2 * k * (S * V + (V - S)))
     return bound_ms(n_bytes, ops)
 
 
 def measure_fused_solve(Fn, Fb, W, device, label: str) -> dict:
-    """Check one case, then time it: the wrapper per call (what a caller
-    pays: copies in, both kernels, copies out), each kernel alone
-    (profiler), the plain version on the card, and the bound."""
+    """Check one case, then time it with the bank normalised in the kernel
+    (``Fn=None``): the wrapper per call on a bank staged on the card
+    (events; what the solver pays besides the staging and the readback),
+    the wrapper with numpy in and out (Fn given, as the earlier kernel's
+    callers used it), each kernel alone (profiler), the plain version on
+    the card (normalisation included), and the bound beside the earlier
+    count."""
     err = check_fused_case(Fn, Fb, W, device, label)
-    jj, P_all, keep = fused_ops.fused_ws_front(Fn, Fb, W, device=device)
+    Fb_d = torch.from_numpy(np.ascontiguousarray(Fb)).to(device)
+    W_d = torch.from_numpy(np.ascontiguousarray(W)).to(device)
+    call = (lambda: fused_ops.fused_ws_front(None, Fb_d, W_d, device=device))
+    jj, P_all, keep = (t.cpu().numpy() for t in call())
     G = np.asarray(Fb)[np.arange(Fb.shape[0])[:, None, None],
                        np.arange(Fb.shape[1])[None, None, :], jj]
     ok = np.isfinite(G).all(axis=(2, 3))
     valid = ok & local_mask_ref(torch.from_numpy(P_all),
                                 torch.from_numpy(ok)).numpy()
-    ms = time_cuda(lambda: fused_ops.fused_ws_front(Fn, Fb, W,
-                                                    device=device), 200)
-    plain = time_cuda(lambda: fused_plain(Fn, Fb, W, device), 50)
-    call = (lambda: fused_ops.fused_ws_front(Fn, Fb, W, device=device))
+    ms = time_cuda(call, 500)
+    ms_numpy = time_cuda(lambda: [t.cpu() for t in fused_ops.fused_ws_front(
+        Fn, Fb, W, device=device)], 200)
+    plain = time_cuda(lambda: fused_ws_front_ref(None, Fb_d, W_d), 50)
     dev = device_us(call, "fused_ws_front_kernel")
     dev_k1 = device_us(call, "pareto_filter_kernel")
-    bound, by = fused_bound_ms(Fn, W, jj, keep, valid)
+    bound, by = fused_bound_ms(np.asarray(Fb), W, jj, keep, valid)
+    old_bound, old_by = fused_bound_ms(np.asarray(Fb), W, jj, keep, valid,
+                                       normalise=False)
     log(f"[kernels] fused_solve (N, m, B, k, nw)="
-        f"{Fn.shape + (W.shape[0],)} ({label}) == plain version "
-        f"(max |dP| {err:.3g}): {ms:.6f} ms per call (events, numpy in and "
-        f"out), fused kernel alone {fmt_us(dev)}, its pareto_filter launch "
-        f"{fmt_us(dev_k1)} (profiler), plain {plain:.6f} ms, bound "
-        f"{bound:.9f} ms ({by}), kept {int(keep.sum())}/{keep.size}; "
-        "library: none (no single PyTorch call makes the picks, the gather, "
-        "the sums and both dominance masks)")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain,
-            "bound_ms": bound, "bound_by": by, "library_ms": None,
+        f"{Fb.shape + (W.shape[0],)} ({label}) == plain version "
+        f"(max |dP| {err:.3g}): {ms:.6f} ms per call (events, Fn=None, "
+        f"tensors on the card), {ms_numpy:.6f} ms per call with numpy in "
+        f"and out; fused kernel alone {fmt_us(dev)}, its pareto_filter "
+        f"launch {fmt_us(dev_k1)} (profiler), plain {plain:.6f} ms, bound "
+        f"{bound:.9f} ms ({by}; the earlier count {old_bound:.9f} ms, "
+        f"{old_by}), kept {int(keep.sum())}/{keep.size}; library: none (no "
+        "single PyTorch call makes the picks, the gather, the sums and both "
+        "dominance masks)")
+    return {"max_abs_err": err, "ms": ms, "ms_numpy_in_out": ms_numpy,
+            "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+            "bound_ms_scores_given": old_bound, "library_ms": None,
             "kernel_us": dev, "pareto_us": dev_k1}
+
+
+def measure_aggregation(device, args) -> dict:
+    """Host wall time of one whole HMOOC2 aggregation on the caller's side
+    (``dag_aggregate``'s hmooc2 branch: staging, tie check, K3 and K1,
+    readback, gathers) on ``args``, the batch's largest bank."""
+    Uc, pool, F_bank, idx_bank = args
+
+    def agg():
+        return hmooc.dag_aggregate(Uc, pool, F_bank, idx_bank, "hmooc2",
+                                   device=device)
+
+    for _ in range(10):
+        agg()
+    torch.cuda.synchronize()
+    n = 100
+    t0 = time.perf_counter()
+    for _ in range(n):
+        agg()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / n * 1e3
+    log(f"[kernels] fused_solve: one whole HMOOC2 aggregation at the "
+        f"largest bank {tuple(F_bank.shape)}: {ms:.6f} ms (host clock, "
+        "staging, tie check, both kernels, readback and gathers)")
+    return {"aggregation_ms": ms}
 
 
 def flash_case(B, Hq, Hkv, Sq, Skv, D, dtype, seed: int, device):
@@ -807,7 +929,9 @@ def warm_up(device, cfg: HMOOCConfig):
     kernel) before anything is timed: one batch at the main path's widths
     through models and services of their own, on queries outside the
     measured streams, so none of their caches serve a timed batch.  The
-    compile-time batch then seeds one runtime batch."""
+    compile-time batch then seeds one runtime batch, and the same queries
+    go once more through an HMOOC2 service (staging, the on-card tie
+    check and K3)."""
     model = PerfModel(ModelConfig("subq", 19), seed=1, device=device)
     model_qs = PerfModel(ModelConfig("qs", 10), seed=2, device=device)
     queries = serving_stream("tpch", 8, seed=1, query_seed=1)
@@ -819,7 +943,11 @@ def warm_up(device, cfg: HMOOCConfig):
     RuntimeSession(model_subq=model, model_qs=model_qs, weights=WEIGHTS,
                    device=device).run_batch(queries, cts)
     torch.cuda.synchronize()
-    return t1 - t0, time.perf_counter() - t1
+    t2 = time.perf_counter()
+    TuningService(model=model, cfg=dataclasses.replace(
+        cfg, dag_method="hmooc2"), device=device).tune_batch(queries, WEIGHTS)
+    torch.cuda.synchronize()
+    return t1 - t0, t2 - t1
 
 
 def run_main_path(device, n_queries: int = 32,
@@ -1029,12 +1157,16 @@ def run_runtime_path(device, model_subq, compiled: dict) -> dict:
 
 def run_hmooc2_path(device, model, n_queries: int = 32) -> dict:
     """One TPC-H batch through a service at the default widths with HMOOC2
-    aggregation; keeps the largest bank the fused kernel was handed."""
+    aggregation.  Counts the routes each aggregation took, its host wall
+    time and the host synchronisations inside it (PyTorch's sync debug
+    mode, on only inside ``dag_aggregate``'s hmooc2 calls); keeps the
+    largest bank aggregated and every on-card tie flag with its rows."""
     svc = TuningService(model=model, cfg=HMOOCConfig(dag_method="hmooc2"),
                         device=device)
     queries = serving_stream("tpch", n_queries, seed=0)
     routes = {"fused": 0, "float64": 0}
-    banks = []
+    agg = {"calls": 0, "host_s": 0.0, "syncs": 0}
+    largest, flags = [], []
 
     def fused_route(*a):
         routes["fused"] += 1
@@ -1044,16 +1176,36 @@ def run_hmooc2_path(device, model, n_queries: int = 32) -> dict:
         routes["float64"] += 1
         return f64_orig(*a)
 
-    def record(Fn, F_bank, W, **kw):
-        if not banks or F_bank.size > banks[0][1].size:
-            banks[:] = [(Fn, F_bank, W)]
-        return fused_ws_orig(Fn, F_bank, W, **kw)
+    def aggregate(Uc, pool, F_bank, idx_bank, method, **kw):
+        if method != "hmooc2":
+            return agg_orig(Uc, pool, F_bank, idx_bank, method, **kw)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            t0 = time.perf_counter()
+            try:
+                return agg_orig(Uc, pool, F_bank, idx_bank, method, **kw)
+            finally:
+                agg["host_s"] += time.perf_counter() - t0
+                torch.cuda.set_sync_debug_mode(0)
+                agg["calls"] += 1
+                agg["syncs"] += sum("called a synchronizing" in str(w.message)
+                                    for w in caught)
+                if not largest or F_bank.size > largest[0][2].size:
+                    largest[:] = [(Uc, pool, F_bank, idx_bank)]
 
-    fused_orig, f64_orig = hmooc._hmooc2_all_fused, hmooc._hmooc2_all
-    fused_ws_orig = fused_pkg.fused_ws_front
+    def tie_flag(F):
+        flag = tie_orig(F)
+        flags.append((F, flag))
+        return flag
+
+    orig = (hmooc._hmooc2_all_fused, hmooc._hmooc2_all, hmooc.dag_aggregate,
+            hmooc._f32_tie_hazard_tensor)
+    fused_orig, f64_orig, agg_orig, tie_orig = orig
     hmooc._hmooc2_all_fused = fused_route
     hmooc._hmooc2_all = float64_route
-    fused_pkg.fused_ws_front = record
+    hmooc.dag_aggregate = aggregate
+    hmooc._f32_tie_hazard_tensor = tie_flag
     reset_launches()
     try:
         torch.cuda.synchronize()
@@ -1063,8 +1215,8 @@ def run_hmooc2_path(device, model, n_queries: int = 32) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     finally:
-        hmooc._hmooc2_all_fused, hmooc._hmooc2_all = fused_orig, f64_orig
-        fused_pkg.fused_ws_front = fused_ws_orig
+        (hmooc._hmooc2_all_fused, hmooc._hmooc2_all, hmooc.dag_aggregate,
+         hmooc._f32_tie_hazard_tensor) = orig
     launches = read_launches()
     check_results(queries, results)
     check_theta_bounds(queries, results)
@@ -1078,6 +1230,10 @@ def run_hmooc2_path(device, model, n_queries: int = 32) -> dict:
            "pareto_launches_per_solved_query": (
                launches["pareto_filter"] / s.n_solved if s.n_solved
                else None),
+           "aggregations": agg["calls"],
+           "aggregation_host_s": agg["host_s"],
+           "host_syncs_per_aggregation": (agg["syncs"] / agg["calls"]
+                                          if agg["calls"] else None),
            "max_memory_bytes": torch.cuda.max_memory_allocated(),
            "mean_solve_s": float(np.mean([r.solve_time for r in results]))}
     log(f"[hmooc2] {json.dumps(row)}")
@@ -1086,7 +1242,14 @@ def run_hmooc2_path(device, model, n_queries: int = 32) -> dict:
             "took the float64 route: their banks hold values that are "
             "distinct in float64 and equal in float32")
     require_launches("hmooc2", launches)
-    return {"launches": launches, "row": row, "bank": banks[0]}
+    if routes["fused"] and launches["fused_solve"] != routes["fused"]:
+        raise AssertionError(f"{routes['fused']} fused aggregations made "
+                             f"{launches['fused_solve']} K3 launches")
+    Fb = largest[0][2]
+    W = hmooc._ws_weights(svc.cfg.n_ws_weights)
+    return {"launches": launches, "row": row, "tie_flags": flags,
+            "bank": (host_scores(Fb), Fb, W),
+            "aggregation_args": largest[0]}
 
 
 def lm_prompts(vocab: int, batch: int, length: int, device,
@@ -1437,8 +1600,11 @@ def main() -> int:
                                              "largest runtime pick")
     entries["ws_reduce"]["max_abs_err"] = max(
         ws_err, entries["ws_reduce"]["max_abs_err"])
+    check_tie_flag(device, hmooc2_path["tie_flags"])
     entries["fused_solve"] = measure_fused_solve(*hmooc2_path["bank"], device,
                                                  "largest HMOOC2 bank")
+    entries["fused_solve"].update(measure_aggregation(
+        device, hmooc2_path["aggregation_args"]))
     entries["fused_solve"]["max_abs_err"] = max(
         fused_err, entries["fused_solve"]["max_abs_err"])
     check_against_host(compile_path["model"], device)

@@ -51,8 +51,8 @@ import torch
 
 from ...device import resolve_device
 from .clustering import kmeans_fit
-from .pareto import (_f32_tie_hazard, pareto_mask_fast, pareto_mask_np,
-                     pareto_masks_fast)
+from .pareto import (_f32_tie_hazard, _f32_tie_hazard_tensor,
+                     pareto_mask_fast, pareto_mask_np, pareto_masks_fast)
 
 __all__ = ["HMOOCConfig", "HMOOCResult", "EffectiveSet", "hmooc_solve",
            "HmoocPlan", "subq_tuning", "build_candidates", "dag_aggregate",
@@ -496,31 +496,62 @@ def _hmooc2_fixed_c(Fb: np.ndarray, Ib: np.ndarray, n_weights: int,
     return _hmooc2_all(Fb[None], Ib[None], n_weights, device)[0]
 
 
-def _hmooc2_all_fused(Uc: np.ndarray, pool: np.ndarray, F_bank: np.ndarray,
-                      idx_bank: np.ndarray, n_weights: int,
-                      device: torch.device
+def _hmooc2_stage(F_bank: np.ndarray, W: np.ndarray, device: torch.device
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """F_bank and W as float64 tensors on ``device``.  Bound for the card,
+    both fill one pinned buffer (allocated per call, so no later call
+    refills it while its copy is in flight) and cross in one non-blocking
+    copy."""
+    nb = F_bank.size
+    buf = torch.empty(nb + W.size, dtype=torch.float64,
+                      pin_memory=device.type == "cuda")
+    host = buf.numpy()
+    host[:nb].reshape(F_bank.shape)[...] = F_bank
+    host[nb:].reshape(W.shape)[...] = W
+    buf = buf.to(device, non_blocking=True)
+    return buf[:nb].view(F_bank.shape), buf[nb:].view(W.shape)
+
+
+def _host_arrays(*ts: torch.Tensor) -> List[np.ndarray]:
+    """numpy copies of ``ts``; from the card, non-blocking copies into one
+    pinned buffer and one synchronisation for all of them."""
+    if ts[0].device.type != "cuda":
+        return [t.numpy() for t in ts]
+    sizes = [t.numel() * t.element_size() for t in ts]
+    starts = np.cumsum([0] + [-(-n // 8) * 8 for n in sizes])
+    buf = torch.empty(int(starts[-1]), dtype=torch.uint8, pin_memory=True)
+    outs = [buf[a:a + n].view(t.dtype).view(t.shape)
+            for t, a, n in zip(ts, starts, sizes)]
+    for o, t in zip(outs, ts):
+        o.copy_(t, non_blocking=True)
+    torch.cuda.current_stream(ts[0].device).synchronize()
+    return [o.numpy() for o in outs]
+
+
+def _hmooc2_all_fused(Uc: np.ndarray, pool: np.ndarray, F_bank, idx_bank:
+                      np.ndarray, W, device: torch.device
                       ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Kernel-regime HMOOC2: the whole aggregation in one fused launch.
 
-    The ``fused_solve`` kernel makes the weighted-sum picks, the
+    ``F_bank`` (N, m, B, k) and the (nw, k) weights ``W`` are numpy on the
+    host or tensors already staged on the card.  The ``fused_solve``
+    kernel normalises the bank and makes the weighted-sum picks, the
     objective-sum gather and the per-candidate dominance mask, and the
-    ``pareto_filter`` kernel the final global filter, instead of bouncing
-    intermediate banks between host and device per candidate.  Returns the
-    already-globally-filtered (front, theta_c, theta_ps) in the same row
-    order the per-candidate numpy route produces (candidate-major, weight
-    ascending), with its same f32 score/compare semantics.
+    ``pareto_filter`` kernel the final global filter, from one C call;
+    the picks, sums and mask come back after one synchronisation.  Returns
+    the already-globally-filtered (front, theta_c, theta_ps) in the same
+    row order the per-candidate numpy route produces (candidate-major,
+    weight ascending), with its same f32 score/compare semantics.
     """
     from ...kernels.fused_solve import fused_ws_front  # lazy: kernel layer
-    N, m, B, k = F_bank.shape
+    _, m, _, k = F_bank.shape
     assert k == 2
-    W = _ws_weights(n_weights)
-    Fn = _hmooc2_normalize(F_bank)
-    jj, P_all, keep = fused_ws_front(Fn, F_bank, W, device=device)
-    cc = np.arange(N)[:, None, None]
-    ii = np.arange(m)[None, None, :]
-    S = idx_bank[cc, ii, jj]                             # (N, nw, m)
+    jj, P_all, keep = _host_arrays(*fused_ws_front(None, F_bank, W,
+                                                   device=device))
     keep_c, keep_w = np.nonzero(keep)
-    theta_ps = pool[np.maximum(S[keep_c, keep_w], 0)]    # (q, m, d_ps)
+    S = idx_bank[keep_c[:, None], np.arange(m)[None, :],
+                 jj[keep_c, keep_w]]                     # (q, m)
+    theta_ps = pool[np.maximum(S, 0)]                    # (q, m, d_ps)
     return P_all[keep_c, keep_w], Uc[keep_c], theta_ps
 
 
@@ -585,10 +616,17 @@ def dag_aggregate(
         # collide as f32 must take the per-candidate f64 numpy route even in
         # the kernel volume regime.  Input-level check on F_bank covers Fn
         # too (Fn is an affine renormalization of F_bank).
-        if N * m * B * n_ws_weights >= _ws_min_scores(device) \
-                and not _f32_tie_hazard(F_bank.reshape(-1, k)):
-            return _hmooc2_all_fused(Uc, pool, F_bank, idx_bank,
-                                     n_ws_weights, device)
+        # On the card the bank is staged first and checked there: one
+        # flag comes back, then the route is taken.
+        if N * m * B * n_ws_weights >= _ws_min_scores(device):
+            W = _ws_weights(n_ws_weights)
+            if device.type == "cuda":
+                Fb, W = _hmooc2_stage(F_bank, W, device)
+                hazard = bool(_f32_tie_hazard_tensor(Fb.view(-1, k)))
+            else:
+                Fb, hazard = F_bank, _f32_tie_hazard(F_bank.reshape(-1, k))
+            if not hazard:
+                return _hmooc2_all_fused(Uc, pool, Fb, idx_bank, W, device)
         per_c: Sequence[Tuple[np.ndarray, np.ndarray]] = \
             _hmooc2_all(F_bank, idx_bank, n_ws_weights, device)
     elif method == "hmooc1":

@@ -216,6 +216,17 @@ def _f32_tie_hazard(F: np.ndarray) -> bool:
     return bool(_f32_tie_hazards(np.asarray(F, np.float64)[None])[0])
 
 
+def _f32_tie_hazard_tensor(F: torch.Tensor) -> torch.Tensor:
+    """:func:`_f32_tie_hazard` of an (n, k) float64 tensor, computed where
+    it lies (each column sorted by ``torch.sort``), as a 0-d bool tensor:
+    reading it is the caller's one synchronisation."""
+    X = torch.where(torch.isfinite(F), F, torch.full_like(F, float("inf")))
+    Xs = torch.sort(X, dim=0).values
+    a, b = Xs[:-1], Xs[1:]
+    return (torch.isfinite(b) & (a != b)
+            & (a.to(torch.float32) == b.to(torch.float32))).any()
+
+
 def _pareto_masks_kernel(X: np.ndarray, v: np.ndarray, device: torch.device
                          ) -> np.ndarray:
     """(S, bucket) masks of the padded float64 stack ``X`` (S, bucket, k)

@@ -14,7 +14,9 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.archs.registry import build_model, get_smoke_config
 from repro_torch.core.moo.hmooc import HMOOCConfig
-from repro_torch.core.moo.pareto import pareto_mask_np, pareto_masks_fast
+from repro_torch.core.moo.pareto import (_f32_tie_hazard,
+                                         _f32_tie_hazard_tensor,
+                                         pareto_mask_np, pareto_masks_fast)
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.fused_solve import ops as fused_ops
@@ -292,20 +294,93 @@ def test_fused_solve_kernel_matches_plain_version(cuda_device, N, m, B, k,
                                                   nw):
     Fn, Fb, W = _fused_case(N, m, B, k, nw, seed=N * 1000 + m * 10 + B)
     before = fused_ops.LAUNCHES, pareto_ops.LAUNCHES
-    jj, P_all, keep = fused_ops.fused_ws_front(Fn, Fb, W, device=cuda_device)
+    out = fused_ops.fused_ws_front(Fn, Fb, W, device=cuda_device)
     assert (fused_ops.LAUNCHES, pareto_ops.LAUNCHES) == \
         (before[0] + 1, before[1] + 1)
-    Fn32 = np.nan_to_num(Fn.astype(np.float32), posinf=1e30)
+    assert all(t.device.type == "cuda" for t in out)
+    jj, P_all, keep = (t.cpu().numpy() for t in out)
     jr, Pr, kr = fused_ws_front_ref(
         *(torch.from_numpy(np.ascontiguousarray(a)).to(cuda_device)
-          for a in (Fn32, Fb, W.astype(np.float32))))
+          for a in (Fn, Fb, W)))
     np.testing.assert_array_equal(jj, jr.cpu().numpy())
     np.testing.assert_allclose(P_all, Pr.cpu().numpy(), rtol=1e-12)
     np.testing.assert_array_equal(keep, kr.cpu().numpy())
     # The card's answer equals the host's plain version too.
     jh, Ph, kh = fused_ops.fused_ws_front(Fn, Fb, W, device="cpu")
-    np.testing.assert_array_equal(jj, jh)
-    np.testing.assert_array_equal(keep, kh)
+    np.testing.assert_array_equal(jj, jh.numpy())
+    np.testing.assert_array_equal(keep, kh.numpy())
+
+
+def _check_fused_normalising(Fb, W, device):
+    """K3 with ``Fn=None`` against the plain version on the host's
+    normalised scores: picks and mask exact, sums within rtol 1e-12, one
+    launch of each kernel."""
+    before = fused_ops.LAUNCHES, pareto_ops.LAUNCHES
+    jj, P_all, keep = (t.cpu().numpy() for t in fused_ops.fused_ws_front(
+        None, torch.from_numpy(Fb).to(device), W, device=device))
+    assert (fused_ops.LAUNCHES, pareto_ops.LAUNCHES) == \
+        (before[0] + 1, before[1] + 1)
+    Fn = fused_ops.hmooc2_scores_ref(torch.from_numpy(Fb))
+    jr, Pr, kr = (t.numpy() for t in fused_ws_front_ref(
+        Fn, torch.from_numpy(Fb), torch.from_numpy(W)))
+    np.testing.assert_array_equal(jj, jr)
+    np.testing.assert_array_equal(keep, kr)
+    fin = np.isfinite(Pr)
+    np.testing.assert_array_equal(np.isfinite(P_all), fin)
+    np.testing.assert_allclose(P_all[fin], Pr[fin], rtol=1e-12)
+    return keep
+
+
+@pytest.mark.parametrize("N,m,B,k,nw", [(1, 1, 2, 2, 3), (7, 3, 16, 2, 6),
+                                        (126, 12, 48, 2, 11),
+                                        (9, 4, 10, 3, 7), (5, 3, 7, 1, 4)])
+def test_fused_solve_normalising_kernel_matches_plain_version(
+        cuda_device, N, m, B, k, nw):
+    """Banks with padding, a candidate without a finite entry and a
+    constant objective, normalised in the kernel."""
+    _, Fb, W = _fused_case(N, m, B, k, nw, seed=N * 100 + m)
+    if N > 3:
+        Fb[3] = np.inf
+        Fb[1, :, :, 0] = 4.5
+        Fb[N - 1, 0, 0, k - 1] = np.nan
+    keep = _check_fused_normalising(Fb, W, cuda_device)
+    assert N <= 3 or not keep[3].any()
+
+
+@pytest.mark.parametrize("N,m,B,k,nw", [(4, 40, 64, 2, 11),
+                                        (3, 3, 2200, 2, 11),
+                                        (3, 5, 900, 8, 6)])
+def test_fused_solve_kernel_tiles_banks_over_its_budget(cuda_device, N, m,
+                                                        B, k, nw):
+    """Banks past the kernel's shared-memory budget stream through in
+    tiles of subQs, or of bank rows where one subQ alone is too large,
+    with and without given scores."""
+    Fn, Fb, W = _fused_case(N, m, B, k, nw, seed=N + m + B)
+    _check_fused_normalising(Fb, W, cuda_device)
+    jj, P_all, keep = (t.cpu().numpy() for t in fused_ops.fused_ws_front(
+        Fn, Fb, W, device=cuda_device))
+    jr, Pr, kr = (t.numpy() for t in fused_ws_front_ref(
+        *(torch.from_numpy(a) for a in (Fn, Fb, W))))
+    np.testing.assert_array_equal(jj, jr)
+    np.testing.assert_array_equal(keep, kr)
+    np.testing.assert_allclose(P_all, Pr, rtol=1e-12)
+
+
+@pytest.mark.parametrize("case", ["none", "planted", "overflow",
+                                  "nonfinite"])
+def test_tie_check_on_card_equals_numpy(cuda_device, case):
+    rng = np.random.default_rng(12)
+    X = (rng.random((72576, 2)) * 10).astype(np.float32).astype(np.float64)
+    X[::7] = np.inf
+    if case == "planted":
+        X[70001, 1] = X[5, 1] + 1e-12
+    elif case == "overflow":
+        X[9, 0], X[10, 0] = 1e39, 2e39
+    elif case == "nonfinite":
+        X[:3, 0] = [np.nan, -np.inf, np.inf]
+    want = _f32_tie_hazard(X)
+    got = _f32_tie_hazard_tensor(torch.from_numpy(X).to(cuda_device))
+    assert bool(got) == want == (case in ("planted", "overflow"))
 
 
 def test_oracle_runtime_session_card_equals_host(cuda_device):

@@ -3,8 +3,10 @@
 The port's plain version (what ``fused_ws_front(..., device="cpu")`` runs)
 is held to the reference's numpy oracle ``fused_ws_front_ref``: picks and
 the kept mask exactly, the float64 objective sums within rtol 1e-12 (the
-same sums, left to right).  The reference's own jit cannot run on this
-JAX, so it is not called here.  The port's ``dag_aggregate`` forced onto
+same sums, left to right).  With ``Fn=None`` it normalises the bank
+itself; its scores are held bit-equal to the reference solver's
+``_hmooc2_normalize`` followed by the float32 cast.  The reference's own
+jit cannot run on this JAX, so it is not called here.  The port's ``dag_aggregate`` forced onto
 the fused route is held to the reference's per-candidate float64 numpy
 route on float32-representable, tie-free banks: the fronts are exactly
 equal.  The CUDA kernel itself is held to the plain version in
@@ -39,8 +41,14 @@ def _normalize(Fb):
 
 def _check(Fn, Fb, W):
     before = port_ops.LAUNCHES
-    jj, P_all, keep = port_ops.fused_ws_front(Fn, Fb, W, device="cpu")
+    out = port_ops.fused_ws_front(Fn, Fb, W, device="cpu")
     assert port_ops.LAUNCHES == before       # the host launches nothing
+    assert all(isinstance(t, torch.Tensor) and t.device.type == "cpu"
+               for t in out)
+    jj, P_all, keep = (t.numpy() for t in out)
+    if Fn is None:                           # the solver's own scores
+        Fn = np.nan_to_num(ref_hmooc._hmooc2_normalize(Fb).astype(
+            np.float32), posinf=1e30)
     jr, Pr, kr = fused_ws_front_ref(Fn, Fb, W)
     np.testing.assert_array_equal(jj, jr)
     np.testing.assert_allclose(P_all, Pr, rtol=1e-12)
@@ -165,3 +173,90 @@ def test_dag_aggregate_tie_hazard_takes_float64_route(restore_thresholds,
     want = ref_hmooc.dag_aggregate(Uc, pool, Fb, Ib, "hmooc2")
     for a, b in zip(got, want):
         np.testing.assert_array_equal(a, b)
+
+
+def _bank(kind, seed):
+    """(N, m, B, 2) float64 banks with the normalisation's edge cases."""
+    rng = np.random.default_rng(seed)
+    Fb = rng.random((6, 3, 8, 2)) * 10 ** rng.uniform(-3, 3, (1, 1, 1, 2))
+    if kind == "padded":                      # partially padded banks
+        Fb[:, :, 5:] = np.inf
+        Fb[1, 2, 1:] = np.nan
+        Fb[4, 0, :3, 1] = -np.inf
+    elif kind == "no_finite":                 # a candidate with no finite
+        # entry, and an objective with none in another
+        Fb[2] = np.inf
+        Fb[3, :, :, 0] = np.nan
+    elif kind == "constant":                  # hi == lo
+        Fb[:, :, :, 1] = 7.25
+        Fb[0] = 3.0
+    elif kind == "huge":                      # spans that overflow, f32 inf
+        with np.errstate(over="ignore"):
+            Fb[1, :, :, 0] *= 1e307
+        Fb[1, 0, 0, 0] = -1.7e308
+        Fb[5, :, :, 1] = rng.random((3, 8)) * 1e300
+    return Fb
+
+
+@pytest.mark.parametrize("kind", ["uniform", "padded", "no_finite",
+                                  "constant", "huge"])
+def test_scores_bit_equal_reference_normalisation(kind):
+    Fb = _bank(kind, seed=len(kind))
+    with np.errstate(over="ignore", invalid="ignore"):
+        want = np.nan_to_num(ref_hmooc._hmooc2_normalize(Fb).astype(
+            np.float32), posinf=1e30)
+    got = port_ops.hmooc2_scores_ref(torch.from_numpy(Fb)).numpy()
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+@pytest.mark.parametrize("kind", ["uniform", "padded", "no_finite",
+                                  "constant", "huge"])
+def test_plain_version_normalises_like_reference(kind):
+    """``Fn=None`` equals the reference's normalise-then-fused_ws_front_ref
+    composition."""
+    Fb = _bank(kind, seed=10 + len(kind))
+    with np.errstate(over="ignore", invalid="ignore"):
+        _check(None, Fb, _weights(7))
+
+
+def test_wrapper_accepts_tensors_and_numpy():
+    rng = np.random.default_rng(8)
+    Fb = rng.random((4, 3, 6, 2))
+    Fb[1, 2, 4:] = np.inf
+    W = _weights(5)
+    want = [t.numpy() for t in port_ops.fused_ws_front(None, Fb, W,
+                                                       device="cpu")]
+    for Fn in (None, port_ops.hmooc2_scores_ref(torch.from_numpy(Fb))):
+        got = port_ops.fused_ws_front(
+            Fn, torch.from_numpy(Fb), torch.from_numpy(W).float(),
+            device="cpu")
+        for a, b in zip(got, want):
+            assert isinstance(a, torch.Tensor)
+            np.testing.assert_array_equal(a.numpy(), b)
+
+
+@pytest.mark.parametrize("case", ["none", "planted", "straddle", "overflow",
+                                  "nonfinite", "signed_zero"])
+def test_tie_check_on_a_tensor_equals_numpy(case):
+    """The router's tensor tie check (run on the card's staged bank) gives
+    ``_f32_tie_hazard``'s answer."""
+    rng = np.random.default_rng(11)
+    X = (rng.random((300, 2)) * 10).astype(np.float32).astype(np.float64)
+    if case == "planted":
+        X[7, 1] = X[100, 1] + 1e-12          # distinct, equal in float32
+    elif case == "straddle":
+        X[3, 0] = np.nextafter(np.float32(2.0), np.float32(3.0)) * 0.5 \
+            + 1.0 + 1e-13
+        X[4, 0] = X[3, 0] + 1e-14
+    elif case == "overflow":                 # both round to +inf in float32
+        X[5, 0], X[6, 0] = 1e39, 2e39
+    elif case == "nonfinite":                # non-finite values never tie
+        X[:4, 0] = [np.inf, -np.inf, np.nan, np.inf]
+    elif case == "signed_zero":
+        X[0, 1], X[1, 1] = 0.0, -0.0
+    want = port_pareto._f32_tie_hazard(X)
+    got = port_pareto._f32_tie_hazard_tensor(torch.from_numpy(X))
+    assert got.dtype == torch.bool and got.dim() == 0
+    assert bool(got) == want
+    assert want == (case in ("planted", "straddle", "overflow"))

@@ -139,3 +139,33 @@ def test_solver_without_card_raises():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         port_hmooc.hmooc_solve(stage_eval, m=2, d_c=2, d_ps=2,
                                cfg=port_hmooc.HMOOCConfig(**CFG_KW))
+
+
+@pytest.mark.parametrize("seed", [2, 3, 4])
+def test_dag_aggregate_staged_fused_route_matches_reference(seed,
+                                                            monkeypatch):
+    """HMOOC2's card route on the host: the bank and weights staged as one
+    float64 buffer, the tie check on the staged tensor, then the fused
+    aggregation on the tensors (``Fn=None``), equal to the reference's
+    per-candidate float64 numpy route on float32-representable banks."""
+    monkeypatch.setattr(ref_pareto, "_KERNEL_MIN_N", 1 << 30)
+    monkeypatch.setattr(ref_hmooc, "_WS_MIN_SCORES", 1 << 60)
+    rng = np.random.default_rng(seed)
+    N, m, B, k = 6, 3, 8, 2
+    Fb = (rng.random((N, m, B, k)) * 10).astype(np.float32).astype(
+        np.float64)
+    Fb[0, 1] = np.inf                             # a subQ with an empty bank
+    Fb[3, :, 5:] = np.inf                         # partially padded banks
+    Ib = np.tile(np.arange(B), (N, m, 1))
+    Uc = rng.random((N, 3))
+    pool = rng.random((B, 4))
+    W = port_hmooc._ws_weights(11)
+    cpu = torch.device("cpu")
+    Fb_t, W_t = port_hmooc._hmooc2_stage(Fb, W, cpu)
+    np.testing.assert_array_equal(Fb_t.numpy(), Fb)
+    np.testing.assert_array_equal(W_t.numpy(), W)
+    assert not bool(port_pareto._f32_tie_hazard_tensor(Fb_t.view(-1, k)))
+    got = port_hmooc._hmooc2_all_fused(Uc, pool, Fb_t, Ib, W_t, cpu)
+    want = ref_hmooc.dag_aggregate(Uc, pool, Fb, Ib, "hmooc2")
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
