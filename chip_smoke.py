@@ -23,8 +23,14 @@ Each path runs with every kernel's launch count set to 0 just before it
 and read just after; the script fails if a kernel of a path was not
 launched there, if a compile-time stream makes more than 2
 ``pareto_filter`` launches per solved query (one for the banks phase, one
-for the DAG filter), or if a runtime batch makes more than one per
-prefiltering ``weighted_pick_batch`` call.  On the HMOOC2 path it counts
+for the DAG filter), or if a runtime batch's rounds make other than one
+``runtime_pick`` call and one host synchronisation each, or any
+``pareto_filter`` or ``ws_reduce`` launch.  ``runtime_pick`` is held to
+its plain version on the planted cases of the CPU parity tests and on
+sets past its shared-memory budget, and timed at the batch's largest
+round beside the composed route it replaces (``pareto_masks_fast``,
+numpy normalisation and ``ws_reduce``) and, at 1-32 sets, beside the
+host's float64 route.  On the HMOOC2 path it counts
 each aggregation's host time and host synchronisations, holds the
 router's on-card tie flag against ``_f32_tie_hazard`` on every bank the
 batch checked, and times the fused kernel (which normalises the staged
@@ -60,6 +66,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+sys.path.insert(0, str(ROOT / "tests"))     # the runtime pick's test cases
 
 from repro_torch.archs import blocks as arch_blocks  # noqa: E402
 from repro_torch.archs.common import DTYPES  # noqa: E402
@@ -84,7 +91,8 @@ from repro_torch.kernels import pareto_filter as pareto_pkg  # noqa: E402
 from repro_torch.kernels.pareto_filter.ref import (  # noqa: E402
     pareto_mask_ref, pareto_masks_ref)
 from repro_torch.kernels.ws_reduce import ops as ws_ops  # noqa: E402
-from repro_torch.kernels.ws_reduce.ref import ws_reduce_ref  # noqa: E402
+from repro_torch.kernels.ws_reduce.ref import (  # noqa: E402
+    kept_normalised, runtime_pick_ref, ws_reduce_ref)
 from repro_torch.queryengine.aqe import LQPRequest, QSRequest  # noqa: E402
 from repro_torch.queryengine.simulator import plan_joins  # noqa: E402
 from repro_torch.queryengine.workloads import serving_stream  # noqa: E402
@@ -92,28 +100,37 @@ from repro_torch.serve import RuntimeSession, TuningService  # noqa: E402
 from repro_torch.serve import runtime as runtime_mod  # noqa: E402
 from repro_torch.serve import service as service_mod  # noqa: E402
 from repro_torch.train.serve import make_serve_fns  # noqa: E402
+from _runtime_pick_cases import (  # noqa: E402
+    CASES as PICK_CASES, PICK_THRESHOLDS, budget_round, case_weights)
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense, 700 W).
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 BF16_OPS_PER_S = 989e12             # tensor cores, dense
 
-# Every kernel of the port: name, wrapper module, TPU kernel it replaces,
-# and the paths that must launch it.
+# Every kernel of the port: name, wrapper module and its launch counter,
+# TPU kernel it replaces, and the paths that must launch it.  ws_reduce
+# alone is on no path since the runtime's rounds take runtime_pick
+# (HMOOC2's float64 route still calls it); both build into one library.
 KERNELS = [
-    {"name": "pareto_filter", "ops": pareto_ops,
+    {"name": "pareto_filter", "ops": pareto_ops, "counter": "LAUNCHES",
      "source": "src/repro_torch/kernels/pareto_filter/csrc/pareto_filter.cu",
      "replaces": "src/repro/kernels/pareto_filter/kernel.py:54",
-     "paths": ("compile", "runtime")},
-    {"name": "ws_reduce", "ops": ws_ops,
+     "paths": ("compile",)},
+    {"name": "ws_reduce", "ops": ws_ops, "counter": "LAUNCHES",
      "source": "src/repro_torch/kernels/ws_reduce/csrc/ws_reduce.cu",
      "replaces": "src/repro/kernels/ws_reduce/kernel.py:35",
+     "paths": ()},
+    {"name": "runtime_pick", "ops": ws_ops,
+     "counter": "RUNTIME_PICK_LAUNCHES",
+     "source": "src/repro_torch/kernels/ws_reduce/csrc/runtime_pick.cu",
+     "replaces": "src/repro/kernels/ws_reduce/kernel.py:35",
      "paths": ("runtime",)},
-    {"name": "fused_solve", "ops": fused_ops,
+    {"name": "fused_solve", "ops": fused_ops, "counter": "LAUNCHES",
      "source": "src/repro_torch/kernels/fused_solve/csrc/fused_solve.cu",
      "replaces": "src/repro/kernels/fused_solve/ops.py:79",
      "paths": ("hmooc2",)},
-    {"name": "flash_attention", "ops": flash_ops,
+    {"name": "flash_attention", "ops": flash_ops, "counter": "LAUNCHES",
      "source": "src/repro_torch/kernels/flash_attention/csrc/"
                "flash_attention_wgmma.cu",
      "replaces": "src/repro/kernels/flash_attention/kernel.py:86",
@@ -151,6 +168,13 @@ WEIGHTS = (0.9, 0.1)
 WS_RUNTIME_SHAPE = (32, 66, 2, 1)
 WS_SHAPES = [(1, 8, 2, 3), (4, 130, 2, 11), (3, 48, 3, 33), (2, 256, 4, 128),
              WS_RUNTIME_SHAPE, (1024, 48, 2, 11)]
+# ws_reduce is timed for the table on a bank shaped as the largest one the
+# composed route hands it in the runtime batch: 31 sets of 5 kept rows,
+# normalised, padded with 1e18.
+WS_TIMED_SHAPE = (31, 5, 2, 1)
+# Rounds of PICK_CROSSOVER_R sets of 64 rows are timed by the runtime
+# pick's card route and the host's float64 route.
+PICK_CROSSOVER_R = (1, 4, 16, 32)
 # fused_solve (N, m, B, k, nw): the reference's four parity cases and its
 # padding-invalid case.  The largest bank of the HMOOC2 batch is checked
 # and timed after that batch.
@@ -225,13 +249,13 @@ def card_line() -> str:
 
 def reset_launches() -> None:
     for k in KERNELS:
-        k["ops"].LAUNCHES = 0
+        setattr(k["ops"], k["counter"], 0)
         for body in getattr(k["ops"], "LAUNCHES_BY_BODY", {}):
             k["ops"].LAUNCHES_BY_BODY[body] = 0
 
 
 def read_launches() -> dict:
-    return {k["name"]: k["ops"].LAUNCHES for k in KERNELS}
+    return {k["name"]: getattr(k["ops"], k["counter"]) for k in KERNELS}
 
 
 def require_launches(path: str, launches: dict) -> None:
@@ -248,10 +272,11 @@ def require_launches(path: str, launches: dict) -> None:
 def build_all() -> float:
     """Compile every kernel library from the checkout's sources, one nvcc
     per library, all started together."""
+    libs = {(k["ops"].__name__.split(".")[-2], k["ops"].SOURCES)
+            for k in KERNELS}
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNELS)) as pool:
-        list(pool.map(lambda k: _build.load(k["name"], k["ops"].SOURCES),
-                      KERNELS))
+    with ThreadPoolExecutor(len(libs)) as pool:
+        list(pool.map(lambda lib: _build.load(*lib), libs))
     return time.perf_counter() - t0
 
 
@@ -317,6 +342,49 @@ def device_us(fn, name: str, iters: int = 200):
     total = sum(getattr(e, "self_device_time_total", 0.0) for e in hits)
     count = sum(e.count for e in hits)
     return total / count if count and total > 0 else None
+
+
+def device_us_per_call(fn, names, iters: int = 200):
+    """Mean device time (µs) one call of ``fn`` spends in kernels whose
+    name contains one of ``names`` (profiler); None if the trace has
+    none."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(getattr(e, "self_device_time_total", 0.0)
+                for e in prof.key_averages()
+                if any(n in e.key for n in names))
+    return total / iters if total > 0 else None
+
+
+def host_ms(fn, iters: int, warm: int = 5) -> float:
+    """Milliseconds per call on the host's clock, each call ending on the
+    host (a readback or a synchronisation), after ``warm`` calls."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+def count_syncs(fn):
+    """(fn's result, the host synchronisations it made): PyTorch's sync
+    debug mode, on only during the call."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return out, sum("called a synchronizing" in str(w.message)
+                    for w in caught)
 
 
 def device_busy_ms(fn) -> float:
@@ -443,17 +511,6 @@ def measure_crossover(device) -> dict:
     saved = pareto_core._KERNEL_MIN_N
     pareto_core._KERNEL_MIN_N = 0
     rows, cross = [], None
-
-    def host_ms(fn, iters):
-        for _ in range(5):
-            fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t0) / iters * 1e3
-
     try:
         for n in CROSSOVER_N:
             F = (rng.random((n, 2)) * 10).astype(np.float32).astype(
@@ -500,8 +557,8 @@ def ws_case(m: int, B: int, k: int, nw: int, seed: int, device):
 
 
 def measure_ws_reduce(F: torch.Tensor, W: torch.Tensor, label: str) -> dict:
-    """The kernel on the banks as float64 (what the runtime and HMOOC2
-    pass; the kernel casts and sanitises each element) and as float32:
+    """The kernel on the banks as float64 (what HMOOC2 passes; the kernel
+    casts and sanitises each element) and as float32:
     indices exact, values within rtol 1e-5 of the plain version (after the
     host-side cast and nan_to_num); its time per call on each (events) and
     alone on float64 (profiler), the plain version's, one einsum + min
@@ -559,6 +616,191 @@ def check_ws_reduce(device) -> float:
     log(f"[kernels] ws_reduce == plain version on {len(WS_SHAPES)} cases "
         "(padding-only banks and exact ties included)")
     return worst
+
+
+def runtime_ws_bank(device, seed: int = 210):
+    """A float64 bank shaped as the composed route's largest runtime pick
+    (WS_TIMED_SHAPE): min-max normalised rows of 31 sets, 2-5 kept rows
+    each, the rest of each set's slots padded with 1e18 as the numpy route
+    pads them, and one weight row."""
+    m, B, k, nw = WS_TIMED_SHAPE
+    rng = np.random.default_rng(seed)
+    F = np.full((m, B, k), 1e18)
+    for i in range(m):
+        n = rng.integers(2, B + 1)
+        F[i, :n] = rng.dirichlet(np.ones(k), n)
+    W = np.tile(WEIGHTS, (nw, 1))
+    return torch.from_numpy(F).to(device), torch.from_numpy(W).to(device)
+
+
+def staged_pick(Fs, w, thresholds, device):
+    """The round staged on the card as the caller stages it, and a call of
+    the wrapper on it."""
+    Fs = [np.asarray(F, np.float64) for F in Fs]
+    staged = runtime_core._stage_round(Fs, np.asarray(w, np.float64), device)
+    max_n = max(len(F) for F in Fs)
+    return staged, (lambda: ws_ops.runtime_pick(
+        *staged, kernel_min_n=thresholds[0], ws_min_scores=thresholds[1],
+        max_n=max_n))
+
+
+def check_pick(Fs, w, thresholds, device, label: str) -> None:
+    """One call against the plain version on the same staged tensors:
+    picks and routes exactly equal, one launch."""
+    staged, call = staged_pick(Fs, w, thresholds, device)
+    l0 = ws_ops.RUNTIME_PICK_LAUNCHES
+    got = call()
+    torch.cuda.synchronize()
+    if ws_ops.RUNTIME_PICK_LAUNCHES != l0 + 1:
+        raise AssertionError(f"runtime_pick made "
+                             f"{ws_ops.RUNTIME_PICK_LAUNCHES - l0} launches")
+    want = runtime_pick_ref(*staged, *thresholds)
+    if not torch.equal(got, want):
+        raise AssertionError(f"runtime_pick differs from its plain version "
+                             f"({label}, thresholds {thresholds}): "
+                             f"{got.tolist()} against {want.tolist()}")
+
+
+def check_runtime_pick(device) -> float:
+    """The planted cases of the CPU parity tests (shared and per-set
+    weights) under each of PICK_THRESHOLDS, and rounds past the kernel's
+    shared-memory budget at k = 2 and 8; exact, so the error is 0."""
+    n = 0
+    for name, make in sorted(PICK_CASES.items()):
+        Fs = make()
+        for per_set in (False, True):
+            for thr in PICK_THRESHOLDS:
+                check_pick(Fs, case_weights(name, per_set, len(Fs)), thr,
+                           device, name)
+                n += 1
+    # Rows counted before every dominance scan ends would raise B_g: with
+    # the float32 route from 4 R_g + 1 scores (each set keeps 4 rows) the
+    # route flips.  The race depends on timing, hence 200 calls.
+    Fs = PICK_CASES["late_dominators"]()
+    for _ in range(200):
+        check_pick(Fs, WEIGHTS, (0, 4 * len(Fs) + 1), device,
+                   "late dominators")
+    for k in (2, 8):
+        Fs, w = budget_round(k)
+        for thr in PICK_THRESHOLDS[:2]:
+            check_pick(Fs, w, thr, device, f"past the budget, k={k}")
+            n += 1
+        log(f"[kernels] runtime_pick == plain version on a round past the "
+            f"shared-memory budget: sets of {[len(F) for F in Fs]} rows, "
+            f"k={k}")
+    log(f"[kernels] runtime_pick == plain version on {n} rounds: "
+        f"{len(PICK_CASES)} planted cases x shared and per-set weights x "
+        f"{len(PICK_THRESHOLDS)} thresholds, and 4 past the budget, and "
+        "200 calls on sets that race a kept count taken early (picks and "
+        "routes exact)")
+    return 0.0
+
+
+def runtime_pick_bound_ms(Fs, G: int, thresholds):
+    """Bytes: the round's float64 sets, offsets, group ids and weights read
+    once, picks and routes written once.  Operations: min and max (2 per
+    value); the dominance tests, 2k per pair as for pareto_filter (a
+    surviving row against every finite row of its set, a dominated one
+    against its dominator), for sets of at least kernel_min_n rows; the
+    normalisation (2 per kept value) and both scores (4 per kept value).
+    At the float32 rate of the table."""
+    R, k = len(Fs), Fs[0].shape[1]
+    total = sum(len(F) for F in Fs)
+    ops = 0
+    for F in Fs:
+        X = torch.from_numpy(np.asarray(F, np.float64))
+        keep, _ = kept_normalised(X, thresholds[0])
+        ops += 2 * X.numel() + 6 * len(keep) * k
+        if len(F) >= thresholds[0]:
+            V = int(torch.isfinite(X).all(-1).sum())
+            S = len(keep) if len(keep) < len(F) else V
+            ops += 2 * k * (S * V + (V - S))
+    return bound_ms(total * k * 8 + (2 * R + 1) * 4 + G * k * 8
+                    + (R + G) * 4, ops)
+
+
+def measure_runtime_pick(device, Fs, w, label: str) -> dict:
+    """At one round (``Fs``, ``w``): the plain version's answer and the
+    composed route's picks checked; the wrapper per call on the
+    staged round (events), both kernels alone (profiler), the plain
+    version on the card, the caller's whole pick (``weighted_pick_batch``:
+    staging, one copy in, the C call, the readback and its one
+    synchronisation) against the composed route it replaces
+    (``_pick_composed`` on the card: ``pareto_masks_fast``, numpy
+    normalisation and ``ws_reduce``), host clock, in turns, with each
+    one's host synchronisations; and the bound."""
+    Fs = [np.asarray(F, np.float64) for F in Fs]
+    w = np.asarray(w, np.float64)
+    thr = runtime_core._pick_thresholds(device)
+    staged, call = staged_pick(Fs, w, thr, device)
+    got = call()
+    if not torch.equal(got, runtime_pick_ref(*staged, *thr)):
+        raise AssertionError(f"runtime_pick differs from its plain version "
+                             f"({label})")
+    new, syncs = count_syncs(
+        lambda: runtime_core.weighted_pick_batch(Fs, w, device=device))
+    old, old_syncs = count_syncs(
+        lambda: runtime_core._pick_composed(Fs, w, device))
+    if new != old or new != got[:len(Fs)].tolist():
+        raise AssertionError(f"the card route picks {new}, the composed "
+                             f"route {old} ({label})")
+    ms = time_cuda(call, 2000)
+    dev = device_us_per_call(call, ("pick_sets_kernel",
+                                    "pick_groups_kernel"))
+    plain = time_cuda(lambda: runtime_pick_ref(*staged, *thr), 20, warm=3)
+    turns = []
+    for fn in ("composed", "whole", "whole", "composed"):
+        turns.append(host_ms(
+            (lambda: runtime_core._pick_composed(Fs, w, device))
+            if fn == "composed" else
+            (lambda: runtime_core.weighted_pick_batch(Fs, w, device=device)),
+            300))
+    G = staged[3].shape[0]
+    bound, by = runtime_pick_bound_ms(Fs, G, thr)
+    routes = got[len(Fs):].tolist()
+    log(f"[kernels] runtime_pick at the {label} ({len(Fs)} sets of "
+        f"{min(map(len, Fs))}-{max(map(len, Fs))} rows, k={Fs[0].shape[1]}, "
+        f"{G} weight groups, routes {routes}) == plain version, picks equal "
+        f"to the composed route's: {ms:.6f} ms per call (events), both "
+        f"kernels {fmt_us(dev)} a call (profiler), plain {plain:.6f} ms, "
+        f"bound {bound:.9f} ms ({by}); library: none (no single PyTorch call "
+        "prefilters, normalises and picks)")
+    log(f"[kernels] runtime_pick: the whole pick (weighted_pick_batch) "
+        f"{turns[1]:.6f} / {turns[2]:.6f} ms, {syncs} host sync; the "
+        f"composed route {turns[0]:.6f} / {turns[3]:.6f} ms, "
+        f"{old_syncs} host syncs (host clock, composed, whole, whole, "
+        "composed)")
+    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain,
+            "bound_ms": bound, "bound_by": by, "library_ms": None,
+            "kernel_us": dev, "whole_pick_ms": turns[1:3],
+            "composed_route_ms": [turns[0], turns[3]],
+            "host_syncs": syncs, "composed_host_syncs": old_syncs,
+            "shape": {"sets": len(Fs), "rows": sum(map(len, Fs)),
+                      "k": int(Fs[0].shape[1]), "groups": G}}
+
+
+def measure_pick_crossover(device) -> list:
+    """One round of R sets of 64 rows (R in PICK_CROSSOVER_R, one weight
+    row) by the card route and by the host's float64 route (the CPU
+    defaults: no prefilter, numpy argmin), host clock.  The routing
+    defaults are not changed here."""
+    rng = np.random.default_rng(22)
+    rows = []
+    for R in PICK_CROSSOVER_R:
+        Fs = [rng.random((64, 2)) * 10 for _ in range(R)]
+        w = np.tile(WEIGHTS, (R, 1))
+        same = runtime_core.weighted_pick_batch(Fs, w, device=device) == \
+            runtime_core.weighted_pick_batch(Fs, w, device="cpu")
+        card = host_ms(lambda: runtime_core.weighted_pick_batch(
+            Fs, w, device=device), 300)
+        host = host_ms(lambda: runtime_core.weighted_pick_batch(
+            Fs, w, device="cpu"), 300)
+        rows.append({"sets": R, "card_ms": card, "host_float64_ms": host,
+                     "same_picks": same})
+        log(f"[crossover] runtime pick, {R} sets of (64, 2): card route "
+            f"{card:.6f} ms, host float64 route {host:.6f} ms per round "
+            f"(host clock; same picks: {same})")
+    return rows
 
 
 def fused_case(N: int, m: int, B: int, k: int, nw: int, seed: int):
@@ -1066,34 +1308,36 @@ def check_runtime_results(queries, cts, results) -> None:
 def run_runtime_path(device, model_subq, compiled: dict) -> dict:
     """``RuntimeSession.run_batch`` at the default widths (64 candidates,
     structural γ, pruning on) on the TPC-H and TPC-DS batches, seeded by
-    the compile-time results of the timed batches."""
+    the compile-time results of the timed batches.  Each round's
+    ``weighted_pick_batch`` call is timed (host clock) inside PyTorch's
+    sync debug mode, which counts its host synchronisations; the largest
+    round's sets and weights are kept for ``measure_runtime_pick``."""
     model_qs = PerfModel(ModelConfig("qs", 10), seed=1, device=device)
     sess = RuntimeSession(model_subq=model_subq, model_qs=model_qs,
                           weights=WEIGHTS, device=device)
     timers = Timers()
-    shapes = []
-    largest = []
+    shapes, largest = [], []
+    picks = {"calls": 0, "syncs": 0}
 
-    def ws_reduce_seen(F, W):
-        shapes.append(tuple(F.shape) + (W.shape[0],))
-        if not largest or F.numel() > largest[0][0].numel():
-            largest[:] = [(F.clone(), W.clone())]
-        return ws_orig(F, W)
+    def pick_seen(F, offsets, gid, W, **kw):
+        shapes.append((gid.numel(), F.shape[0], F.shape[1], W.shape[0]))
+        return pick_orig(F, offsets, gid, W, **kw)
 
-    mask_calls = [0]
-
-    def masks_seen(Fs, **kw):
-        mask_calls[0] += 1
-        return masks_orig(Fs, **kw)
+    def weighted_pick(Fs, weights, **kw):
+        if not largest or sum(map(len, Fs)) > sum(map(len, largest[0][0])):
+            largest[:] = [(list(Fs), np.array(weights))]
+        out, syncs = count_syncs(lambda: timed_pick(Fs, weights, **kw))
+        picks["calls"] += 1
+        picks["syncs"] += syncs
+        return out
 
     orig = (runtime_mod.score_requests, runtime_mod.weighted_pick_batch,
-            runtime_core.pareto_masks_fast, ws_pkg.ws_reduce)
-    masks_orig, ws_orig = orig[2], orig[3]
+            ws_pkg.runtime_pick)
+    pick_orig = orig[2]
+    timed_pick = timers.wrap("weighted_pick_batch", orig[1])
     runtime_mod.score_requests = timers.wrap("score_requests", orig[0])
-    runtime_mod.weighted_pick_batch = timers.wrap("weighted_pick_batch",
-                                                  orig[1])
-    runtime_core.pareto_masks_fast = timers.wrap("pareto_masks", masks_seen)
-    ws_pkg.ws_reduce = timers.wrap("ws_reduce", ws_reduce_seen)
+    runtime_mod.weighted_pick_batch = weighted_pick
+    ws_pkg.runtime_pick = pick_seen
     for m in (model_subq, model_qs):      # inside score_requests
         m.embed = timers.wrap("embed", m.embed)
         m.predict = timers.wrap("predict", m.predict)
@@ -1106,7 +1350,7 @@ def run_runtime_path(device, model_subq, compiled: dict) -> dict:
             torch.cuda.reset_peak_memory_stats()
             timers.t.clear()
             shapes.clear()
-            mask_calls[0] = 0
+            picks.update(calls=0, syncs=0)
             l0 = read_launches()
             t0 = time.perf_counter()
             results = sess.run_batch(queries, cts)
@@ -1115,44 +1359,53 @@ def run_runtime_path(device, model_subq, compiled: dict) -> dict:
             check_runtime_results(queries, cts, results)
             s = sess.last_batch
             l1 = read_launches()
-            k1 = l1["pareto_filter"] - l0["pareto_filter"]
+            n = {k: l1[k] - l0[k] for k in l1}
+            pick_s = timers.t.get("weighted_pick_batch", 0.0)
             row = {"batch": name, "queries": len(queries), "wall_s": wall,
                    "requests_sent": s.requests_sent,
                    "requests_total": s.requests_total,
                    "rounds": s.rounds, "fused_calls": s.fused_calls,
                    "requests_per_s": s.requests_sent / wall,
-                   "pareto_launches": k1,
-                   "pareto_launches_per_query": k1 / len(queries),
-                   "prefiltering_pick_calls": mask_calls[0],
-                   "ws_reduce_launches": l1["ws_reduce"] - l0["ws_reduce"],
-                   "ws_reduce_max_shape": ([int(x) for x in
-                                            np.max(shapes, axis=0)]
-                                           if shapes else None),
+                   "runtime_pick_launches": n["runtime_pick"],
+                   "pareto_launches": n["pareto_filter"],
+                   "ws_reduce_launches": n["ws_reduce"],
+                   "weighted_pick_batch_calls": picks["calls"],
+                   "host_syncs_per_round": (picks["syncs"] / s.rounds
+                                            if s.rounds else None),
+                   "weighted_pick_batch_ms_per_round": (
+                       pick_s / s.rounds * 1e3 if s.rounds else None),
+                   "runtime_pick_max_shape": ([int(x) for x in
+                                               np.max(shapes, axis=0)]
+                                              if shapes else None),
                    "max_memory_bytes": torch.cuda.max_memory_allocated(),
                    "host_s": {k: round(v, 6) for k, v in timers.t.items()},
                    "mean_actual_latency_s": float(np.mean(
                        [r.sim.actual_latency[0] for r in results]))}
             per_batch.append(row)
             log(f"[runtime] {json.dumps(row)}")
-            log(f"[runtime] {name}: {k1} K1 launches for {len(queries)} "
-                f"queries in {s.rounds} rounds, {mask_calls[0]} prefiltering "
-                f"weighted_pick_batch calls; masks' host time "
-                f"{timers.t.get('pareto_masks', 0.0):.6f} s of "
+            log(f"[runtime] {name}: {n['runtime_pick']} runtime_pick "
+                f"launches and {picks['syncs']} host syncs in {s.rounds} "
+                f"rounds; weighted_pick_batch's host time {pick_s:.6f} s of "
                 f"{wall:.6f} s")
-            if k1 > mask_calls[0]:
-                raise AssertionError(f"{name}: {k1} K1 launches for "
-                                     f"{mask_calls[0]} prefiltering picks; "
-                                     "at most one a call")
+            if not (n["runtime_pick"] == picks["calls"] == s.rounds
+                    == picks["syncs"]):
+                raise AssertionError(
+                    f"{name}: {n['runtime_pick']} runtime_pick launches and "
+                    f"{picks['syncs']} host syncs for {picks['calls']} "
+                    f"picks in {s.rounds} rounds; one of each a round")
+            if n["pareto_filter"] or n["ws_reduce"]:
+                raise AssertionError(f"{name}: the runtime path launched "
+                                     f"pareto_filter or ws_reduce ({n})")
     finally:
         (runtime_mod.score_requests, runtime_mod.weighted_pick_batch,
-         runtime_core.pareto_masks_fast, ws_pkg.ws_reduce) = orig
+         ws_pkg.runtime_pick) = orig
         for m in (model_subq, model_qs):
             del m.embed, m.predict
     launches = read_launches()
     require_launches("runtime", launches)
     log(f"[runtime] pools {sess.pool_cache.stats()}; launches {launches}")
     return {"launches": launches, "batches": per_batch, "model_qs": model_qs,
-            "ws_inputs": largest[0]}
+            "pick_inputs": largest[0]}
 
 
 def run_hmooc2_path(device, model, n_queries: int = 32) -> dict:
@@ -1584,6 +1837,7 @@ def main() -> int:
     entries = {"pareto_filter": check_pareto_filter(device),
                "flash_attention": check_flash_attention(device)}
     ws_err = check_ws_reduce(device)
+    pick_err = check_runtime_pick(device)
     fused_err = check_fused_solve(device)
     compile_path = run_main_path(device)
     runtime_path = run_runtime_path(device, compile_path["model"],
@@ -1596,10 +1850,15 @@ def main() -> int:
     entries["pareto_filter"]["max_abs_err"] = max(
         k1_err, entries["pareto_filter"]["max_abs_err"])
     measure_crossover(device)
-    entries["ws_reduce"] = measure_ws_reduce(*runtime_path["ws_inputs"],
-                                             "largest runtime pick")
+    entries["ws_reduce"] = measure_ws_reduce(
+        *runtime_ws_bank(device), "runtime-shaped bank")
     entries["ws_reduce"]["max_abs_err"] = max(
         ws_err, entries["ws_reduce"]["max_abs_err"])
+    entries["runtime_pick"] = measure_runtime_pick(
+        device, *runtime_path["pick_inputs"], "largest runtime round")
+    entries["runtime_pick"]["max_abs_err"] = max(
+        pick_err, entries["runtime_pick"]["max_abs_err"])
+    measure_pick_crossover(device)
     check_tie_flag(device, hmooc2_path["tie_flags"])
     entries["fused_solve"] = measure_fused_solve(*hmooc2_path["bank"], device,
                                                  "largest HMOOC2 bank")

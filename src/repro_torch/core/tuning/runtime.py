@@ -148,22 +148,27 @@ def weighted_pick_batch(Fs: Sequence[np.ndarray], weights, *,
     volume, which can route a group to numpy f64 where the homogeneous
     batch would hit the f32 kernel.
 
-    Per set: dominated rows are dropped (``pareto_masks_fast`` — the CUDA
-    ``pareto_filter`` kernel above ``REPRO_PARETO_KERNEL_MIN_N``, one launch
-    for every set of the call whatever the weights), all rows
-    are min-max normalized over the full set, and the weighted-sum argmin
-    over the survivors routes through the ``ws_reduce`` kernel when the
-    fused score volume (sets × bank) clears ``REPRO_WS_KERNEL_MIN_SCORES``
-    (float64 numpy below) — the same env-gated thresholds as the
-    compile-time solver.  Single-request and fused serving calls share
+    Per set: dominated rows are dropped (at or above
+    ``REPRO_PARETO_KERNEL_MIN_N`` rows), all rows are min-max normalized
+    over the full set, and the weighted-sum argmin over the survivors
+    scores in float32 when the group's fused score volume (sets × bank)
+    clears ``REPRO_WS_KERNEL_MIN_SCORES`` and no normalized value ties
+    another in float32, else in float64 — the same env-gated thresholds as
+    the compile-time solver.  Single-request and fused serving calls share
     this code, so on the numpy routing (the CPU default) their picks are
     identical; above the kernel thresholds the fused call may score in
     float32 while a lone request stays on numpy, the same f32-vs-f64
     caveat the compile-time kernel routing documents.
 
-    ``device`` (``None`` = the CUDA card) decides where the kernels run and
-    their default thresholds: 0 on ``cuda`` (every set is prefiltered and
-    every pick is a kernel launch), numpy float64 on ``cpu``.
+    ``device`` (``None`` = the CUDA card) decides where the picks run and
+    the thresholds' defaults.  On ``cuda`` (both thresholds 0 by default)
+    the round's sets, offsets, group ids and weights cross in one pinned
+    copy, one ``runtime_pick`` call prefilters, normalizes and picks them
+    all on the card, and the picks come back after one synchronisation:
+    the decisions the numpy route would make with the ``pareto_filter``
+    and ``ws_reduce`` kernels behind it.  On ``cpu`` the numpy route runs,
+    with those kernels' plain versions above the thresholds (defaults:
+    never).
     """
     device = resolve_device(device)
     R = len(Fs)
@@ -173,19 +178,101 @@ def weighted_pick_batch(Fs: Sequence[np.ndarray], weights, *,
     if w.ndim == 2 and w.shape[0] != R:
         raise ValueError(f"got {w.shape[0]} weight rows for {R} candidate sets")
     Fs = [np.asarray(F, np.float64) for F in Fs]
+    if device.type == "cuda":
+        return _pick_on_card(Fs, w, device)
+    return _pick_composed(Fs, w, device)
+
+
+def _pick_composed(Fs: List[np.ndarray], w: np.ndarray,
+                   device: torch.device) -> List[int]:
+    """The numpy route: masks from ``pareto_masks_fast`` and picks from
+    ``_pick`` a weight group, each reaching its kernel on ``device`` above
+    the thresholds (on the host, the kernels' plain versions).  The card
+    takes ``_pick_on_card``, which decides alike."""
     kept = _prefilter(Fs, device)
     if w.ndim != 2:
         return _pick(Fs, kept, w, device)
     groups: Dict[tuple, List[int]] = {}
     for r, row in enumerate(map(tuple, w.tolist())):
         groups.setdefault(row, []).append(r)
-    out = [0] * R
+    out = [0] * len(Fs)
     for row, idxs in groups.items():
         for i, j in zip(idxs, _pick([Fs[i] for i in idxs],
                                     [kept[i] for i in idxs],
                                     np.asarray(row, np.float64), device)):
             out[i] = j
     return out
+
+
+def _stage_round(Fs: List[np.ndarray], w: np.ndarray, device: torch.device
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                            torch.Tensor]:
+    """``runtime_pick``'s inputs on ``device``: the sets one after another
+    (total, k) float64, their (R + 1,) int32 row offsets, each set's (R,)
+    int32 weight group and the groups' (G, k) float64 weight rows (one
+    group per distinct row of a per-set ``w``, in first-seen order, as the
+    numpy route groups them).  All four fill one buffer, pinned when bound
+    for the card, and cross in one copy."""
+    R, k = len(Fs), Fs[0].shape[-1]
+    sizes = [len(F) for F in Fs]
+    if 0 in sizes:
+        raise ValueError(f"candidate sets must be nonempty (n, {k}) arrays")
+    gid = 0
+    if w.ndim != 2:
+        W = w.reshape(1, -1)
+    elif (w == w[0]).all():      # one weight row: one group
+        W = w[:1]
+    else:
+        groups: Dict[tuple, int] = {}
+        gid = [groups.setdefault(row, len(groups))
+               for row in map(tuple, w.tolist())]
+        W = np.asarray(list(groups), np.float64).reshape(len(groups), -1)
+    total = sum(sizes)
+    nF, nW = total * k * 8, W.size * 8
+    buf = torch.empty(nF + nW + 4 * (2 * R + 1), dtype=torch.uint8,
+                      pin_memory=device.type == "cuda")
+    host = buf.numpy()
+    # Raises unless every set is (n, k).
+    np.concatenate(Fs, out=host[:nF].view(np.float64).reshape(total, k))
+    host[nF:nF + nW].view(np.float64)[...] = W.ravel()
+    ints = host[nF + nW:].view(np.int32)
+    ints[0] = 0
+    ints[1:R + 1] = sizes
+    np.cumsum(ints[1:R + 1], out=ints[1:R + 1])
+    ints[R + 1:] = gid
+    buf = buf.to(device, non_blocking=True)
+    ints_d = buf[nF + nW:].view(torch.int32)
+    return (buf[:nF].view(torch.float64).view(total, k), ints_d[:R + 1],
+            ints_d[R + 1:], buf[nF:nF + nW].view(torch.float64).view(W.shape))
+
+
+def _pick_thresholds(device: torch.device) -> Tuple[int, int]:
+    """(prefilter rows, float32 score volume) at or above which a pick
+    takes the kernels' route on ``device``."""
+    thr = _pareto._KERNEL_MIN_N if _pareto._KERNEL_MIN_N is not None \
+        else _pareto._default_kernel_min_n(device)
+    return thr, _hmooc._ws_min_scores(device)
+
+
+def _pick_on_card(Fs: List[np.ndarray], w: np.ndarray,
+                  device: torch.device) -> List[int]:
+    """The whole round in one ``runtime_pick`` call: one copy in
+    (``_stage_round``), the picks back into one pinned buffer after one
+    synchronisation."""
+    # repro: allow[KP003] the tie check runs on the card inside runtime_pick, which scores a group with a float32 tie in float64 (runtime_pick_ref states the rule)
+    from ...kernels.ws_reduce import runtime_pick  # lazy: kernel layer
+    F, offsets, gid, W = _stage_round(Fs, w, device)
+    thr, ws_thr = _pick_thresholds(device)
+    out = runtime_pick(F, offsets, gid, W, kernel_min_n=thr,
+                       ws_min_scores=ws_thr,
+                       max_n=max(f.shape[0] for f in Fs))
+    picks = torch.empty(out.shape, dtype=torch.int32, pin_memory=True)
+    picks.copy_(out, non_blocking=True)
+    torch.cuda.current_stream(device).synchronize()
+    j = picks.numpy()[:len(Fs)]
+    if (j < 0).any():
+        raise IndexError("a weighted pick fell on its bank's padding")
+    return j.tolist()
 
 
 def _prefilter(Fs: List[np.ndarray], device: torch.device

@@ -7,6 +7,8 @@ machine that has only PyTorch:
 
     python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 """
+import warnings
+
 import numpy as np
 import pytest
 
@@ -14,6 +16,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.archs.registry import build_model, get_smoke_config
 from repro_torch.core.moo.hmooc import HMOOCConfig
+from repro_torch.core.tuning import runtime as runtime_core
 from repro_torch.core.moo.pareto import (_f32_tie_hazard,
                                          _f32_tie_hazard_tensor,
                                          pareto_mask_np, pareto_masks_fast)
@@ -25,9 +28,12 @@ from repro_torch.kernels.pareto_filter import ops as pareto_ops
 from repro_torch.kernels.pareto_filter.ref import (pareto_mask_ref,
                                                    pareto_masks_ref)
 from repro_torch.kernels.ws_reduce import ops as ws_ops
-from repro_torch.kernels.ws_reduce.ref import ws_reduce_ref
+from repro_torch.kernels.ws_reduce.ref import runtime_pick_ref, ws_reduce_ref
 from repro_torch.queryengine.workloads import serving_stream
 from repro_torch.serve import RuntimeSession, TuningService
+
+from _runtime_pick_cases import (CASES, PICK_THRESHOLDS, budget_round,
+                                 case_weights)
 
 pytestmark = pytest.mark.cuda
 
@@ -383,17 +389,119 @@ def test_tie_check_on_card_equals_numpy(cuda_device, case):
     assert bool(got) == want == (case in ("planted", "overflow"))
 
 
+def _check_runtime_pick(Fs, w, thresholds, device):
+    """runtime_pick on the card against its plain version on the same
+    tensors and on the host: picks and routes exactly equal, one launch."""
+    Fs = [np.asarray(F, np.float64) for F in Fs]
+    F, off, gid, W = runtime_core._stage_round(
+        Fs, np.asarray(w, np.float64), device)
+    kw = dict(kernel_min_n=thresholds[0], ws_min_scores=thresholds[1])
+    before = ws_ops.RUNTIME_PICK_LAUNCHES
+    got = ws_ops.runtime_pick(F, off, gid, W,
+                              max_n=max(len(f) for f in Fs), **kw)
+    torch.cuda.synchronize()
+    assert ws_ops.RUNTIME_PICK_LAUNCHES == before + 1
+    assert got.device.type == "cuda"
+    want = runtime_pick_ref(F, off, gid, W, *thresholds)
+    np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+    host = ws_ops.runtime_pick(*(t.cpu() for t in (F, off, gid, W)), **kw)
+    np.testing.assert_array_equal(got.cpu().numpy(), host.numpy())
+    return got.cpu().numpy()
+
+
+@pytest.mark.parametrize("thresholds", PICK_THRESHOLDS)
+@pytest.mark.parametrize("per_set", [False, True])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_runtime_pick_kernel_matches_plain_version(cuda_device, case, per_set,
+                                                   thresholds):
+    Fs = CASES[case]()
+    _check_runtime_pick(Fs, case_weights(case, per_set, len(Fs)), thresholds,
+                        cuda_device)
+
+
+def test_runtime_pick_kernel_counts_kept_rows_after_every_scan(cuda_device):
+    """Each set keeps 4 rows, so R_g * B_g = 4 R_g; with the float32 route
+    from 4 R_g + 1 scores the route is float64, and a kept count read
+    before some row's scan ends would raise B_g and flip it.  The case
+    makes the counting threads fast and the scans they race slow; many
+    calls, as the race depends on timing."""
+    Fs = [np.asarray(f, np.float64) for f in CASES["late_dominators"]()]
+    F, off, gid, W = runtime_core._stage_round(Fs, np.array([0.9, 0.1]),
+                                               cuda_device)
+    ws = 4 * len(Fs) + 1
+    want = runtime_pick_ref(F, off, gid, W, 0, ws).cpu()
+    assert want[-1] == 0
+    for _ in range(200):
+        got = ws_ops.runtime_pick(F, off, gid, W, kernel_min_n=0,
+                                  ws_min_scores=ws, max_n=85)
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("thresholds", PICK_THRESHOLDS[:2])
+@pytest.mark.parametrize("k", [2, 8])
+def test_runtime_pick_kernel_tiles_sets_over_its_budget(cuda_device, k,
+                                                        thresholds):
+    """Sets past the kernel's shared-memory budget stream their dominators
+    through it in tiles; the picks stay the plain version's."""
+    _check_runtime_pick(*budget_round(k), thresholds, cuda_device)
+
+
+def test_runtime_pick_kernel_other_widths_and_offsets(cuda_device):
+    """k = 1, 3, 5 and 8 (numpy's pairwise float64 order), and sets whose
+    first row lies off a 16-byte boundary (odd k, odd offsets)."""
+    rng = np.random.default_rng(41)
+    for k in (1, 3, 5, 8):
+        Fs = [rng.standard_normal((n, k)) * 10.0 ** rng.integers(-3, 4,
+                                                                  (n, k))
+              for n in (3, 33, 80, 1, 7)]
+        for thresholds in PICK_THRESHOLDS:
+            _check_runtime_pick(Fs, rng.random((5, k)), thresholds,
+                                cuda_device)
+            _check_runtime_pick(Fs, rng.random(k), thresholds, cuda_device)
+
+
+def test_weighted_pick_batch_one_launch_one_sync_on_card(cuda_device):
+    """On the card a call makes one runtime_pick launch, no pareto_filter
+    or ws_reduce launch and one host synchronisation, and decides as the
+    host's numpy route with the kernels' plain versions behind it."""
+    Fs = CASES["mixed"]()
+    w = case_weights("mixed", True, len(Fs))
+    before = (ws_ops.RUNTIME_PICK_LAUNCHES, pareto_ops.LAUNCHES,
+              ws_ops.LAUNCHES)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            got = runtime_core.weighted_pick_batch(Fs, w, device=cuda_device)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    assert sum("called a synchronizing" in str(m.message)
+               for m in caught) == 1
+    assert (ws_ops.RUNTIME_PICK_LAUNCHES, pareto_ops.LAUNCHES,
+            ws_ops.LAUNCHES) == (before[0] + 1, before[1], before[2])
+    host = runtime_core._pick_composed(
+        [np.asarray(F, np.float64) for F in Fs], w, torch.device("cpu"))
+    assert got == host
+
+
 def test_oracle_runtime_session_card_equals_host(cuda_device):
-    """The runtime path on the card (K1 prefilter and K2 picks in float32,
-    behind the tie-hazard guards) decides exactly as the host's float64
-    numpy routing on a 6-query stream."""
+    """The runtime path on the card (one runtime_pick launch a round:
+    prefilter, normalisation and picks on the card, float32 behind the
+    tie-hazard guards) decides exactly as the host's float64 numpy routing
+    on a 6-query stream, with no pareto_filter or ws_reduce launch."""
     cfg = HMOOCConfig(n_c_init=16, n_clusters=4, n_p_pool=48, n_c_enrich=12,
                       max_bank=12, seed=3)
     queries = serving_stream("tpch", 6, seed=5)
     cts = TuningService(cfg=cfg, device="cpu").tune_batch(queries)
-    before = pareto_ops.LAUNCHES, ws_ops.LAUNCHES
-    card = RuntimeSession(device=cuda_device).run_batch(queries, cts)
-    assert pareto_ops.LAUNCHES > before[0] and ws_ops.LAUNCHES > before[1]
+    before = (pareto_ops.LAUNCHES, ws_ops.LAUNCHES,
+              ws_ops.RUNTIME_PICK_LAUNCHES)
+    sess = RuntimeSession(device=cuda_device)
+    card = sess.run_batch(queries, cts)
+    rounds = sess.last_batch.rounds
+    assert rounds > 0
+    assert (pareto_ops.LAUNCHES, ws_ops.LAUNCHES,
+            ws_ops.RUNTIME_PICK_LAUNCHES) == (before[0], before[1],
+                                              before[2] + rounds)
     host = RuntimeSession(device="cpu").run_batch(queries, cts)
     for a, b in zip(card, host):
         np.testing.assert_array_equal(a.theta_p_eff, b.theta_p_eff)
