@@ -13,6 +13,17 @@ default model and solver widths:
 * the runtime (AQE) half, ``RuntimeSession.run_batch``, seeded by the
   compile-time results;
 * HMOOC2, the same service with ``HMOOCConfig(dag_method="hmooc2")``;
+* performance-model training (``train``): TPC-H traces at the reference's
+  fast budget, the three datasets, and ``subq``, ``qs`` and ``lqp`` trained
+  on the card at the default widths (no kernel of the port runs there:
+  training is PyTorch's autograd and AdamW, as the reference's is XLA);
+  each model's steps/s, host syncs, losses and test-split accuracy, a
+  save/load round trip, and 5 steps on the card held to the host's;
+* the optimizer on the trained models (``trained``): the 22 TPC-H queries
+  through ``tune_batch`` and ``RuntimeSession.run_batch``, with the
+  simulated latency and cost under the picks against Spark's defaults;
+  then the paper's MOO baselines (MO-WS, NSGA-II, Progressive Frontier)
+  beside HMOOC3 on 2 of those queries (``baselines``);
 * dense-LM serving (``lm``): ``glm4-9b`` at full width in bfloat16 with
   random weights from a seed, one prompt-scoring forward of 4 × 2048 tokens
   through the flash-attention kernel's tensor-core body (every launch must
@@ -56,6 +67,7 @@ import dataclasses
 import json
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 from concurrent.futures import ThreadPoolExecutor
@@ -71,11 +83,16 @@ sys.path.insert(0, str(ROOT / "tests"))     # the runtime pick's test cases
 from repro_torch.archs import blocks as arch_blocks  # noqa: E402
 from repro_torch.archs.common import DTYPES  # noqa: E402
 from repro_torch.archs.registry import build_model, get_config  # noqa: E402
-from repro_torch.core.models.perf_model import ModelConfig, PerfModel  # noqa: E402
+from repro_torch.core.models.perf_model import (  # noqa: E402
+    ModelConfig, PerfModel, _Net)
+from repro_torch.core.models.training import (  # noqa: E402
+    build_dataset, evaluate, train_model)
 from repro_torch.core.moo import hmooc  # noqa: E402
 from repro_torch.core.moo import pareto as pareto_core  # noqa: E402
-from repro_torch.core.moo.hmooc import HMOOCConfig  # noqa: E402
+from repro_torch.core.moo import baselines  # noqa: E402
+from repro_torch.core.moo.hmooc import HMOOCConfig, hmooc_solve  # noqa: E402
 from repro_torch.core.tuning import runtime as runtime_core  # noqa: E402
+from repro_torch.core.tuning.objectives import StageObjectives  # noqa: E402
 from repro_torch.core.tuning.spark_space import (  # noqa: E402
     theta_c_space, theta_p_space, theta_s_space)
 from repro_torch.kernels import _build  # noqa: E402
@@ -93,9 +110,13 @@ from repro_torch.kernels.pareto_filter.ref import (  # noqa: E402
 from repro_torch.kernels.ws_reduce import ops as ws_ops  # noqa: E402
 from repro_torch.kernels.ws_reduce.ref import (  # noqa: E402
     kept_normalised, runtime_pick_ref, ws_reduce_ref)
-from repro_torch.queryengine.aqe import LQPRequest, QSRequest  # noqa: E402
-from repro_torch.queryengine.simulator import plan_joins  # noqa: E402
-from repro_torch.queryengine.workloads import serving_stream  # noqa: E402
+from repro_torch.queryengine.aqe import (  # noqa: E402
+    LQPRequest, QSRequest, run_with_aqe)
+from repro_torch.queryengine.simulator import (  # noqa: E402
+    default_theta, plan_joins)
+from repro_torch.queryengine.trace import collect_traces  # noqa: E402
+from repro_torch.queryengine.workloads import (  # noqa: E402
+    default_workload, make_benchmark, serving_stream)
 from repro_torch.serve import RuntimeSession, TuningService  # noqa: E402
 from repro_torch.serve import runtime as runtime_mod  # noqa: E402
 from repro_torch.serve import service as service_mod  # noqa: E402
@@ -116,7 +137,7 @@ KERNELS = [
     {"name": "pareto_filter", "ops": pareto_ops, "counter": "LAUNCHES",
      "source": "src/repro_torch/kernels/pareto_filter/csrc/pareto_filter.cu",
      "replaces": "src/repro/kernels/pareto_filter/kernel.py:54",
-     "paths": ("compile",)},
+     "paths": ("compile", "trained")},
     {"name": "ws_reduce", "ops": ws_ops, "counter": "LAUNCHES",
      "source": "src/repro_torch/kernels/ws_reduce/csrc/ws_reduce.cu",
      "replaces": "src/repro/kernels/ws_reduce/kernel.py:35",
@@ -125,7 +146,7 @@ KERNELS = [
      "counter": "RUNTIME_PICK_LAUNCHES",
      "source": "src/repro_torch/kernels/ws_reduce/csrc/runtime_pick.cu",
      "replaces": "src/repro/kernels/ws_reduce/kernel.py:35",
-     "paths": ("runtime",)},
+     "paths": ("runtime", "trained")},
     {"name": "fused_solve", "ops": fused_ops, "counter": "LAUNCHES",
      "source": "src/repro_torch/kernels/fused_solve/csrc/fused_solve.cu",
      "replaces": "src/repro/kernels/fused_solve/ops.py:79",
@@ -234,6 +255,30 @@ LM_BF16_LOGIT_ATOL = 0.125
 # Prompt seeds of the logit-spread measurement (flash bodies and SDPA
 # against the plain route on the same glm4-9b weights).
 LM_SPREAD_SEEDS = (0, 1, 2)
+# Performance-model training at the reference's fast TPC-H budget
+# (benchmarks/common.py's FAST: 3 variants of each template, 32
+# configurations a query; 1,500 steps of 512 rows for subq and qs, 500 of
+# 64 for lqp) at the default ModelConfig.
+TRAIN_BENCH, TRAIN_VARIANTS, TRAIN_CONFS = "tpch", 3, 32
+TRAIN_BUDGET = {"subq": (1500, 512), "qs": (1500, 512), "lqp": (500, 64)}
+# The trained subq's test-split correlation must exceed these (latency, IO):
+# the intent of tests/test_models.py::test_model_trains_and_roundtrips.
+TRAIN_MIN_CORR = (0.5, 0.8)
+# Steps of the card against the host from one start, and their losses'
+# tolerance: tests/test_torch_training.py's TRAJECTORY_LOSS_RTOL, which
+# holds the host's trajectory to the reference's.
+TRAIN_CHECK_STEPS = 5
+TRAIN_STEP_RTOL = 2e-6
+# Host synchronisations allowed in one train_model call: the losses are
+# read back once, after the loop.
+TRAIN_MAX_SYNCS = 1
+# The baselines phase: 2 TPC-H queries in the fine-grained flat space, at
+# benchmarks/bench_moo.py's budgets, beside HMOOC3 on the same objectives.
+BASELINE_QUERIES = 2
+BASELINE_SOLVERS = (
+    ("ws", baselines.solve_ws, dict(n_samples=10000, n_weights=11)),
+    ("evo", baselines.solve_evo, dict(pop=100, n_evals=500)),
+    ("pf", baselines.solve_pf, dict(n_points=9)))
 
 
 def log(msg: str) -> None:
@@ -1703,6 +1748,247 @@ def run_lm_path(device, cfg=None, batch: int = LM_BATCH,
 
 
 # ---------------------------------------------------------------------------
+# Phase 3b: performance-model training, and the optimizer on trained models
+# ---------------------------------------------------------------------------
+
+def run_train_path(device) -> dict:
+    """Collect TPC-H traces, build the three datasets and train subq, qs
+    and lqp on the card at the default widths.  Each ``train_model`` call
+    runs inside PyTorch's sync debug mode, which counts its host
+    synchronisations: at most TRAIN_MAX_SYNCS, none inside the loop.
+    Losses must be finite and fall, the subq model's test-split
+    correlations must pass TRAIN_MIN_CORR, and a save/load round trip must
+    keep every model's predictions."""
+    t_phase = t0 = time.perf_counter()
+    queries = default_workload(TRAIN_BENCH, TRAIN_VARIANTS)
+    traces = collect_traces(queries, TRAIN_CONFS, seed=0)
+    log(f"[train] traces: {len(queries)} queries x {TRAIN_CONFS} "
+        f"configurations, {traces.query_idx.shape[0]} stage rows and "
+        f"{traces.q_query_idx.shape[0]} query rows in "
+        f"{time.perf_counter() - t0:.3f} s (host)")
+    models, datasets, rows = {}, {}, []
+    reset_launches()
+    for kind, (steps, batch) in TRAIN_BUDGET.items():
+        ds, cfg = build_dataset(traces, kind, seed=0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model, syncs = count_syncs(lambda: train_model(
+            ds, cfg, steps=steps, batch=batch, seed=0, device=device))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        losses = model.train_losses
+        first, last = float(losses[:100].mean()), float(losses[-100:].mean())
+        t0 = time.perf_counter()
+        met = evaluate(model, ds)
+        evaluate_s = time.perf_counter() - t0
+        row = {"kind": kind, "rows": ds.n,
+               "train_rows": int(ds.masks["train"].sum()),
+               "graphs": int(ds.graphs[0].shape[0]),
+               "graph_nodes": int(ds.graphs[0].shape[1]),
+               "steps": steps, "batch": batch, "wall_s": wall,
+               "steps_per_s": steps / wall,
+               "rows_per_s": steps * batch / wall,
+               "host_syncs": syncs,
+               "loss_first_100": first, "loss_last_100": last,
+               "test_wmape": met.wmape.tolist(), "test_p50": met.p50.tolist(),
+               "test_p90": met.p90.tolist(), "test_corr": met.corr.tolist(),
+               "predict_rows_per_s": met.xput, "evaluate_s": evaluate_s}
+        rows.append(row)
+        log(f"[train] {json.dumps(row)}")
+        log(f"[train] {kind}: {steps} steps of {batch} rows in {wall:.3f} s "
+            f"({steps / wall:.1f} steps/s, {steps * batch / wall:.0f} "
+            f"rows/s), {syncs} host syncs in train_model; loss "
+            f"{first:.4f} -> {last:.4f}; test latency {met.row(0)} | IO "
+            f"{met.row(1)}; predict {met.xput:.0f} rows/s (8,192 rows, "
+            "copies in and out included)")
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"{kind}: a training loss is not finite")
+        if not last < first:
+            raise AssertionError(f"{kind}: the loss did not fall ({first:.4g}"
+                                 f" -> {last:.4g})")
+        if syncs > TRAIN_MAX_SYNCS:
+            raise AssertionError(f"{kind}: train_model synchronised with the "
+                                 f"host {syncs} times in {steps} steps; at "
+                                 f"most {TRAIN_MAX_SYNCS}")
+        check_roundtrip(model, traces.queries[0], device)
+        models[kind], datasets[kind] = model, (ds, cfg)
+    ds, cfg = datasets["subq"]
+    batch, busy_steps = TRAIN_BUDGET["subq"][1], 10
+
+    def short():
+        return train_model(ds, cfg, steps=busy_steps, batch=batch, seed=1,
+                           device=device)
+
+    t0 = time.perf_counter()
+    busy = device_busy_ms(short)
+    traced_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    short()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    log(f"[train] subq, {busy_steps} steps of {batch} rows: card busy "
+        f"{busy:.3f} ms of {wall_ms:.3f} ms (profiler against untraced wall "
+        f"time; idle share {1 - busy / wall_ms:.1%}), "
+        f"{busy / busy_steps:.4f} ms a step on the card; traced in "
+        f"{traced_s:.3f} s")
+    corr = rows[0]["test_corr"]
+    if not (corr[0] > TRAIN_MIN_CORR[0] and corr[1] > TRAIN_MIN_CORR[1]):
+        raise AssertionError(f"subq test correlations {corr} below "
+                             f"{TRAIN_MIN_CORR}")
+    launches = read_launches()
+    if any(launches.values()):
+        raise AssertionError(f"training launched a kernel: {launches}")
+    check_train_against_host(device, *datasets["subq"])
+    log(f"[train] phase: {time.perf_counter() - t_phase:.3f} s")
+    return {"launches": launches, "rows": rows, "models": models}
+
+
+def check_roundtrip(model, query, device) -> None:
+    """``save`` then ``load`` gives a model with the same predictions."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "model.npz")
+        model.save(path)
+        loaded = PerfModel.load(model.cfg, path, device=device)
+    sq = 0 if model.cfg.kind != "lqp" else None
+    emb = model.embed(query, sq)
+    if not np.array_equal(emb, loaded.embed(query, sq)):
+        raise AssertionError(f"{model.cfg.kind}: embeddings changed in a "
+                             "save/load round trip")
+    theta = np.random.default_rng(0).random(
+        (64, model.cfg.theta_dim)).astype(np.float32)
+    nond = np.zeros(12, np.float32)
+    if not np.array_equal(model.predict(emb, theta, nond),
+                          loaded.predict(emb, theta, nond)):
+        raise AssertionError(f"{model.cfg.kind}: predictions changed in a "
+                             "save/load round trip")
+
+
+def check_train_against_host(device, ds, cfg) -> None:
+    """TRAIN_CHECK_STEPS steps from one start on the card and on the host:
+    every step's loss within TRAIN_STEP_RTOL."""
+    t0 = time.perf_counter()
+    start = _Net(cfg, torch.Generator().manual_seed(7)).state_dict()
+    steps, batch = TRAIN_CHECK_STEPS, TRAIN_BUDGET[cfg.kind][1]
+    card, host = (train_model(ds, cfg, steps=steps, batch=batch, seed=0,
+                              init_params=start, device=d).train_losses
+                  for d in (device, "cpu"))
+    err = float(np.max(np.abs(card - host) / np.abs(host)))
+    if not err <= TRAIN_STEP_RTOL:
+        raise AssertionError(f"{cfg.kind}: {steps} training steps on the "
+                             f"card and the host differ by relative {err:.3g}"
+                             f" (card {card}, host {host})")
+    log(f"[check] {steps} {cfg.kind} training steps (batch {batch}) on the "
+        f"card within relative {err:.3g} of the host's losses (rtol "
+        f"{TRAIN_STEP_RTOL}), in {time.perf_counter() - t0:.3f} s")
+
+
+def run_trained_path(device, models: dict) -> dict:
+    """The 22 TPC-H queries through ``TuningService.tune_batch`` with the
+    trained subq model, then ``RuntimeSession.run_batch`` with the trained
+    subq and qs models, under the main paths' checks and launch gates.
+    Prints the simulated total latency and cost under the picks against
+    Spark's defaults, and the reduction (not gated)."""
+    t_phase = time.perf_counter()
+    queries = make_benchmark("tpch")
+    svc = TuningService(model=models["subq"], cfg=HMOOCConfig(),
+                        device=device)
+    sess = RuntimeSession(model_subq=models["subq"], model_qs=models["qs"],
+                          weights=WEIGHTS, device=device)
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cts = svc.tune_batch(queries, WEIGHTS)
+    torch.cuda.synchronize()
+    compile_s = time.perf_counter() - t0
+    check_results(queries, cts)
+    check_theta_bounds(queries, cts)
+    n_solved = svc.last_batch.n_solved
+    k1 = pareto_ops.LAUNCHES
+    if k1 > 2 * n_solved:
+        raise AssertionError(f"trained: {k1} K1 launches for {n_solved} "
+                             "solved queries; at most 2 a query")
+    l0 = read_launches()
+    t0 = time.perf_counter()
+    rts = sess.run_batch(queries, cts)
+    torch.cuda.synchronize()
+    runtime_s = time.perf_counter() - t0
+    check_runtime_results(queries, cts, rts)
+    launches = read_launches()
+    n = {k: launches[k] - l0[k] for k in launches}
+    rounds = sess.last_batch.rounds
+    if n["runtime_pick"] != rounds:
+        raise AssertionError(f"trained: {n['runtime_pick']} runtime_pick "
+                             f"launches in {rounds} rounds; one a round")
+    if n["pareto_filter"] or n["ws_reduce"]:
+        raise AssertionError(f"trained: the runtime path launched "
+                             f"pareto_filter or ws_reduce ({n})")
+    require_launches("trained", launches)
+    tc, tp, ts = default_theta(1)
+    sims = [run_with_aqe(q, tc[0], tp[0], ts[0]).sim for q in queries]
+    lat0 = sum(float(sim.actual_latency[0]) for sim in sims)
+    cost0 = sum(float(sim.cost[0]) for sim in sims)
+    lat = sum(float(r.sim.actual_latency[0]) for r in rts)
+    cost = sum(float(r.sim.cost[0]) for r in rts)
+    row = {"queries": len(queries), "solved": n_solved,
+           "compile_qps": len(queries) / compile_s, "compile_s": compile_s,
+           "mean_solve_s": float(np.mean([r.solve_time for r in cts])),
+           "pareto_launches": k1, "runtime_s": runtime_s,
+           "runtime_rounds": rounds,
+           "runtime_pick_launches": n["runtime_pick"],
+           "requests_sent": sess.last_batch.requests_sent,
+           "total_latency_s": lat, "total_cost": cost,
+           "default_total_latency_s": lat0, "default_total_cost": cost0,
+           "latency_reduction": 1.0 - lat / lat0,
+           "cost_reduction": 1.0 - cost / cost0}
+    log(f"[trained] {json.dumps(row)}")
+    log(f"[trained] {len(queries)} TPC-H queries: {row['compile_qps']:.2f} "
+        f"q/s, mean solve {row['mean_solve_s']:.4f} s, {k1} K1 launches; "
+        f"runtime {runtime_s:.4f} s, {rounds} rounds; simulated latency "
+        f"{lat:.3f} s against {lat0:.3f} s under Spark's defaults "
+        f"({row['latency_reduction']:.1%} less), cost {cost:.5g} against "
+        f"{cost0:.5g} ({row['cost_reduction']:.1%} less); phase "
+        f"{time.perf_counter() - t_phase:.3f} s")
+    return {"launches": launches, "row": row}
+
+
+def run_baselines(device, model) -> list:
+    """The paper's MOO baselines beside HMOOC3 on BASELINE_QUERIES TPC-H
+    queries with the trained subq model on the card (fine-grained flat
+    space); every front must be non-dominated."""
+    t_phase = time.perf_counter()
+    rows = []
+    for q in make_benchmark("tpch")[:BASELINE_QUERIES]:
+        obj = StageObjectives(q, model=model)
+        res = hmooc_solve(obj.stage_eval, obj.m, obj.d_c, obj.d_ps,
+                          HMOOCConfig(dag_method="hmooc3", seed=0),
+                          snap_c=obj.snap_c, snap_ps=obj.snap_ps,
+                          device=device)
+        fronts = {"hmooc3": (res.front, res.solve_time, res.n_evals)}
+        ev, D = obj.query_eval_fine()
+        for name, solve, kw in BASELINE_SOLVERS:
+            F, U, dt, n_evals = solve(ev, D, seed=0, **kw)
+            if U.shape != (F.shape[0], D) or not ((U >= 0) & (U <= 1)).all():
+                raise AssertionError(f"{q.qid} {name}: decisions out of the "
+                                     "unit cube")
+            fronts[name] = (F, dt, n_evals)
+        for name, (F, dt, n_evals) in fronts.items():
+            if F.ndim != 2 or F.shape[0] == 0 or not np.isfinite(F).all() \
+                    or not pareto_core.pareto_mask_np(F).all():
+                raise AssertionError(f"{q.qid} {name}: the front is empty, "
+                                     "not finite or dominated")
+            row = {"query": q.qid, "subqs": q.n_subqs, "dims": D,
+                   "method": name, "solve_s": dt, "evals": int(n_evals),
+                   "front_size": int(F.shape[0]),
+                   "best_latency": float(F[:, 0].min()),
+                   "best_cost": float(F[:, 1].min())}
+            rows.append(row)
+            log(f"[baselines] {json.dumps(row)}")
+    log(f"[baselines] phase: {time.perf_counter() - t_phase:.3f} s")
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # Phase 4: the card's answers against the host's, on small inputs
 # ---------------------------------------------------------------------------
 
@@ -1869,6 +2155,9 @@ def main() -> int:
     check_against_host(compile_path["model"], device)
     check_runtime_against_host(compile_path["model"],
                                runtime_path["model_qs"], device)
+    train_path = run_train_path(device)
+    trained_path = run_trained_path(device, train_path["models"])
+    run_baselines(device, train_path["models"]["subq"])
     lm_path = run_lm_path(device)
     torch.cuda.empty_cache()
     check_lm_flash_against_plain(device)
@@ -1877,6 +2166,8 @@ def main() -> int:
     paths = {"compile": compile_path["launches"],
              "runtime": runtime_path["launches"],
              "hmooc2": hmooc2_path["launches"],
+             "train": train_path["launches"],
+             "trained": trained_path["launches"],
              "lm": lm_path["launches"]}
     kernels = []
     entries["flash_attention"]["lm_launches_by_body"] = \

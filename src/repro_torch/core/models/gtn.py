@@ -70,7 +70,9 @@ class GTN(nn.Module):
         H = cfg.n_heads
         dh = cfg.d_model // H
         h = self.in_proj(X) + self.pe_proj(pe)
-        neg = torch.tensor(-1e9, dtype=h.dtype, device=h.device)
+        # A fill on the device: torch.tensor(-1e9, device=...) would copy
+        # from the host and wait for the card on every forward.
+        neg = torch.full((), -1e9, dtype=h.dtype, device=h.device)
         zero = torch.zeros((), dtype=h.dtype, device=h.device)
         attn_mask = torch.where(mask, zero, neg)[:, None, None, :]  # keys
         for i in range(cfg.n_layers):

@@ -7,7 +7,9 @@ module's ``state_dict`` one leaf per key:
 * :class:`Dense` — ``x @ w + b`` with ``w`` stored ``(d_in, d_out)``;
 * :class:`LayerNorm` — ``g``/``b``, population variance, eps 1e-5;
 * :class:`MLP` — ``l0 … l{n-1}`` dense layers with tanh-approximate GELU
-  between them (``jax.nn.gelu``'s default).
+  between them (``jax.nn.gelu``'s default);
+* :func:`adamw` — the reference's ``adamw_init``/``adamw_update`` pair as a
+  ``torch.optim.AdamW`` with the same settings.
 
 Initialisation draws from an explicit ``torch.Generator`` on the host;
 ``torch`` and ``jax`` give different numbers from one seed, so parity tests
@@ -27,7 +29,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-__all__ = ["Dense", "LayerNorm", "MLP", "gelu", "disable_tf32"]
+__all__ = ["Dense", "LayerNorm", "MLP", "gelu", "disable_tf32", "adamw"]
 
 
 def disable_tf32() -> None:
@@ -80,3 +82,18 @@ class MLP(nn.ModuleDict):
             if i < n - 1:
                 x = gelu(x)
         return x
+
+
+def adamw(params, lr: float = 0.0) -> torch.optim.AdamW:
+    """AdamW with the reference's settings (b1 0.9, b2 0.999, eps 1e-8,
+    weight decay 1e-4).
+
+    ``torch.optim.AdamW`` makes the reference's update: bias correction on
+    both moments, and weight decay decoupled from the gradient and scaled by
+    the learning rate, ``p -= lr * (m̂ / (sqrt(v̂) + eps) + wd * p)``.  It
+    computes the bias corrections in Python floats where the reference
+    takes them in float32, so the two differ in the last bits.  A caller
+    that follows a schedule sets ``param_groups[i]["lr"]`` before each step.
+    """
+    return torch.optim.AdamW(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                             weight_decay=1e-4)

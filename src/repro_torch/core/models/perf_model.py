@@ -107,6 +107,17 @@ class _Net(nn.Module):
              nond: torch.Tensor) -> torch.Tensor:
         return self.reg(torch.cat([emb, theta, nond], dim=-1))
 
+    def forward(self, X: torch.Tensor, pe: torch.Tensor, bias: torch.Tensor,
+                mask: torch.Tensor, theta: torch.Tensor,
+                nond: torch.Tensor) -> torch.Tensor:
+        """The reference's ``apply_rows``: embed per-row graphs and regress.
+
+        (B, N, ·) graph tensors, (B, θd) unit θ and (B, 12) non-decision
+        rows → (B, n_targets) z.  Differentiable: training calls it on a
+        fresh ``_Net``.
+        """
+        return self.head(self.gtn(X, pe, bias, mask), theta, nond)
+
 
 def _sorted_items(state: Mapping[str, torch.Tensor]):
     """State items in the reference's leaf order.
@@ -157,10 +168,14 @@ class PerfModel:
         self.device = resolve_device(device)
         disable_tf32()
         gen = torch.Generator().manual_seed(seed)
-        net = _Net(cfg, gen)
+        # The seeded init crosses without a stream synchronisation (the
+        # host's pages are staged before the call returns); params already
+        # on the device (a model that was trained there) load without a
+        # round trip through the host.
+        net = _Net(cfg, gen).to(self.device, non_blocking=True)
         if params is not None:
             net.load_state_dict(dict(params), strict=True)
-        self.net = net.to(self.device).eval()
+        self.net = net.eval()
         self.net.requires_grad_(False)
         # (2, n_targets): row 0 = mu, row 1 = sd of log(y + eps).
         if target_stats is None:
@@ -174,6 +189,8 @@ class PerfModel:
         self.head_buckets: set = set()
         self.embed_buckets: set = set()
         self.rows_predicted = 0
+        # Per-step training losses, when ``training.train_model`` built it.
+        self.train_losses: Optional[np.ndarray] = None
 
     @property
     def params(self) -> Dict[str, torch.Tensor]:
@@ -255,6 +272,19 @@ class PerfModel:
         for j, (key, _) in enumerate(todo):
             self._emb_cache[key] = emb[j]
 
+    @torch.inference_mode()
+    def apply_rows(self, graphs, theta: np.ndarray,
+                   nond: np.ndarray) -> np.ndarray:
+        """Per-row graphs ``(X, pe, bias, mask)`` and regressor inputs → z.
+
+        The inference side of the reference's ``apply_rows`` (its
+        ``evaluate`` reads a test split through it): numpy in, z out.
+        """
+        X, pe, bias, mask = (self._to_dev(a) for a in graphs)
+        z = self.net(X, pe, bias, mask, self._to_dev(theta),
+                     self._to_dev(nond))
+        return z.cpu().numpy()
+
     # -- target transform ------------------------------------------------------
     def to_z(self, y: np.ndarray) -> np.ndarray:
         mu, sd = self.target_stats
@@ -324,6 +354,18 @@ class PerfModel:
             outs.append(self._head_z(e, t, d)[:c])
         return self.from_z(outs[0] if len(outs) == 1
                            else np.concatenate(outs, 0))
+
+    def compile_stats(self) -> dict:
+        """Shape accounting, in the reference's keys.
+
+        ``head_buckets`` and ``embed_buckets`` are the padded shapes seen.
+        The port has no jit cache to count, so ``head_compiles`` and
+        ``embed_compiles`` are -1, the value the reference gives when it
+        cannot read its cache.
+        """
+        return {"head_buckets": sorted(self.head_buckets),
+                "embed_buckets": sorted(self.embed_buckets),
+                "head_compiles": -1, "embed_compiles": -1}
 
     # -- persistence ----------------------------------------------------------
     def save(self, path: str) -> None:

@@ -26,6 +26,7 @@ from .plan import Operator, Query, SubQ, cbo_estimate
 __all__ = [
     "Table", "TPCH_TABLES", "TPCDS_TABLES",
     "make_query", "make_benchmark", "parametric_variants", "serving_stream",
+    "default_workload",
 ]
 
 
@@ -316,4 +317,15 @@ def serving_stream(benchmark: str, n: int, *, seed: int = 0,
             built[(t, v)] = make_query(benchmark, t, variant=v,
                                        seed=query_seed)
         out.append(built[(t, v)])
+    return out
+
+
+def default_workload(benchmark: str, n_per_template: int = 4, *,
+                     seed: int = 0) -> List[Query]:
+    """Training workload: every template × ``n_per_template`` variants."""
+    n_t = 22 if benchmark == "tpch" else 102
+    out: List[Query] = []
+    for t in range(n_t):
+        out.extend(parametric_variants(benchmark, t, n_per_template,
+                                       seed=seed, start=1))
     return out

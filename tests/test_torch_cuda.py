@@ -7,6 +7,7 @@ machine that has only PyTorch:
 
     python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 """
+import dataclasses
 import warnings
 
 import numpy as np
@@ -29,7 +30,15 @@ from repro_torch.kernels.pareto_filter.ref import (pareto_mask_ref,
                                                    pareto_masks_ref)
 from repro_torch.kernels.ws_reduce import ops as ws_ops
 from repro_torch.kernels.ws_reduce.ref import runtime_pick_ref, ws_reduce_ref
-from repro_torch.queryengine.workloads import serving_stream
+from repro_torch.core.models.gtn import GTNConfig
+from repro_torch.core.models.perf_model import ModelConfig, PerfModel, _Net
+from repro_torch.core.models.training import (build_dataset, evaluate,
+                                              train_model)
+from repro_torch.core.moo import baselines
+from repro_torch.core.tuning.objectives import StageObjectives
+from repro_torch.queryengine.trace import collect_traces
+from repro_torch.queryengine.workloads import (default_workload,
+                                               make_benchmark, serving_stream)
 from repro_torch.serve import RuntimeSession, TuningService
 
 from _runtime_pick_cases import (CASES, PICK_THRESHOLDS, budget_round,
@@ -696,3 +705,93 @@ def test_smoke_lm_flash_card_matches_host(cuda_device, arch):
     assert flash_ops.LAUNCHES == before + cfg.n_layers
     want, _ = host(tokens)
     torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=0)
+
+
+# Training at the smoke size of the CPU parity tests (8 TPC-H queries, 6
+# configurations, GTN d_model 16, 1 layer).  TRAIN_STEP_RTOL is
+# test_torch_training.py's TRAJECTORY_LOSS_RTOL, which holds the host's
+# trajectory to the reference's.
+SMOKE_GTN = GTNConfig(d_model=16, n_heads=2, n_layers=1, d_ff=32)
+TRAIN_STEP_RTOL = 2e-6
+
+
+@pytest.fixture(scope="module")
+def smoke_subq_set():
+    traces = collect_traces(default_workload("tpch", 2)[:8], 6, seed=0)
+    ds, cfg = build_dataset(traces, "subq")
+    return traces, ds, dataclasses.replace(cfg, gtn=SMOKE_GTN, hidden=(16,))
+
+
+def test_training_steps_on_card_match_host(cuda_device, smoke_subq_set):
+    """5 steps from one start: every loss within TRAIN_STEP_RTOL of the
+    host's, and the trained models' z within rtol 1e-4."""
+    _, ds, cfg = smoke_subq_set
+    start = _Net(cfg, torch.Generator().manual_seed(3)).state_dict()
+    card, host = (train_model(ds, cfg, steps=5, batch=128, seed=0,
+                              init_params=start, device=d)
+                  for d in (cuda_device, "cpu"))
+    np.testing.assert_allclose(card.train_losses, host.train_losses,
+                               rtol=TRAIN_STEP_RTOL)
+    ii = np.arange(0, ds.n, 5)
+    graphs = tuple(g[ds.graph_id[ii]] for g in ds.graphs)
+    np.testing.assert_allclose(
+        card.apply_rows(graphs, ds.theta[ii], ds.nond[ii]),
+        host.apply_rows(graphs, ds.theta[ii], ds.nond[ii]),
+        rtol=1e-4, atol=1e-4)
+
+
+def test_model_trained_on_card(cuda_device, smoke_subq_set, tmp_path):
+    """60 steps on the card: parameters stay there, the call synchronises
+    with the host once (the losses read back after the loop), the loss
+    falls, and a save/load round trip keeps the predictions."""
+    traces, ds, cfg = smoke_subq_set
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            model = train_model(ds, cfg, steps=60, batch=128, seed=0,
+                                device=cuda_device)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = sum("called a synchronizing" in str(w.message) for w in caught)
+    assert syncs <= 1
+    assert all(p.device.type == cuda_device.type
+               for p in model.net.parameters())
+    losses = model.train_losses
+    assert losses.shape == (60,) and np.isfinite(losses).all()
+    assert losses[-10:].mean() < losses[:10].mean()
+    met = evaluate(model, ds)
+    assert np.isfinite(met.wmape).all() and met.xput > 0
+    path = str(tmp_path / "model.npz")
+    model.save(path)
+    loaded = PerfModel.load(cfg, path, device=cuda_device)
+    emb = model.embed(traces.queries[0], 0)
+    theta = np.random.default_rng(0).random((16, 19)).astype(np.float32)
+    nond = np.zeros(12, np.float32)
+    np.testing.assert_array_equal(model.predict(emb, theta, nond),
+                                  loaded.predict(emb, theta, nond))
+
+
+@pytest.mark.parametrize("solver", ["ws", "evo", "pf", "so_fw"])
+def test_baselines_with_card_model(cuda_device, solver):
+    """The baselines over a card model (tests/test_tuning.py's budgets, q9,
+    query-level space): non-dominated fronts, the host's decisions and
+    evaluation counts, objectives within rtol 1e-4 of the host's."""
+    cfg = ModelConfig("subq", 19, gtn=SMOKE_GTN, hidden=(16,))
+    card = PerfModel(cfg, seed=0, device=cuda_device)
+    host = PerfModel(cfg, seed=0, device="cpu")
+    q9 = make_benchmark("tpch")[8]
+    run = {"ws": lambda ev, D: baselines.solve_ws(ev, D, n_samples=800),
+           "evo": lambda ev, D: baselines.solve_evo(ev, D, pop=24,
+                                                    n_evals=96),
+           "pf": lambda ev, D: baselines.solve_pf(ev, D, n_points=5,
+                                                  n_probe=128),
+           "so_fw": lambda ev, D: baselines.solve_so_fw(
+               ev, D, np.array([0.9, 0.1]), n_samples=400)}[solver]
+    F, U, _, n = run(*StageObjectives(q9, model=card).query_eval_coarse())
+    F_h, U_h, _, n_h = run(*StageObjectives(q9,
+                                            model=host).query_eval_coarse())
+    assert pareto_mask_np(F).all() and np.isfinite(F).all()
+    np.testing.assert_array_equal(U, U_h)
+    np.testing.assert_allclose(F, F_h, rtol=1e-4)
+    assert n == n_h
