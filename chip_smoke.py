@@ -24,6 +24,13 @@ default model and solver widths:
   simulated latency and cost under the picks against Spark's defaults;
   then the paper's MOO baselines (MO-WS, NSGA-II, Progressive Frontier)
   beside HMOOC3 on 2 of those queries (``baselines``);
+* the streaming layer on the trained models: ``OptimizerServer.serve`` on
+  a 64-request Poisson stream at 16 q/s on measured wall time
+  (``serve``); a ``ServiceTimeModel`` calibrated on the card, then the
+  nine-scenario matrix served by a static and an elastic server under it,
+  the elastic one twice (``scenarios``); ``OptimizerFleet`` at 1, 2 and 4
+  workers on one card with affinity and random routing on the overload
+  mix, and a ``CacheStore`` round trip (``fleet``);
 * dense-LM serving (``lm``): ``glm4-9b`` at full width in bfloat16 with
   random weights from a seed, one prompt-scoring forward of 4 × 2048 tokens
   through the flash-attention kernel's tensor-core body (every launch must
@@ -36,7 +43,12 @@ launched there, if a compile-time stream makes more than 2
 ``pareto_filter`` launches per solved query (one for the banks phase, one
 for the DAG filter), or if a runtime batch's rounds make other than one
 ``runtime_pick`` call and one host synchronisation each, or any
-``pareto_filter`` or ``ws_reduce`` launch.  ``runtime_pick`` is held to
+``pareto_filter`` or ``ws_reduce`` launch.  The streaming phases hold the
+same launch rules inside the server's flushes and fusion rounds, the
+served plans to the port's offline pipeline on the card (within rtol
+1e-4 for ``serve``; exactly for the scenarios' survivors and across fleet
+widths), and two clocked serves of a scenario to one timeline.
+``runtime_pick`` is held to
 its plain version on the planted cases of the CPU parity tests and on
 sets past its shared-memory budget, and timed at the batch's largest
 round beside the composed route it replaces (``pareto_masks_fast``,
@@ -64,7 +76,10 @@ script fails before it prints any result.  It imports nothing of JAX.
 from __future__ import annotations
 
 import dataclasses
+import io
 import json
+import math
+import pickle
 import subprocess
 import sys
 import tempfile
@@ -115,10 +130,16 @@ from repro_torch.queryengine.aqe import (  # noqa: E402
 from repro_torch.queryengine.simulator import (  # noqa: E402
     default_theta, plan_joins)
 from repro_torch.queryengine.trace import collect_traces  # noqa: E402
+from repro_torch.queryengine.scenarios import scenario_matrix  # noqa: E402
 from repro_torch.queryengine.workloads import (  # noqa: E402
-    default_workload, make_benchmark, serving_stream)
-from repro_torch.serve import RuntimeSession, TuningService  # noqa: E402
+    ArrivalModel, TenantSpec, default_workload, make_benchmark,
+    multi_tenant_stream, serving_stream)
+from repro_torch.serve import (  # noqa: E402
+    REJECTED_STATUSES, CacheStore, CandidatePoolCache, ElasticPolicy,
+    OptimizerFleet, OptimizerServer, RuntimeSession, ServerConfig,
+    ServiceTimeModel, TuningService)
 from repro_torch.serve import runtime as runtime_mod  # noqa: E402
+from repro_torch.serve.cache import query_fingerprint  # noqa: E402
 from repro_torch.serve import service as service_mod  # noqa: E402
 from repro_torch.train.serve import make_serve_fns  # noqa: E402
 from _runtime_pick_cases import (  # noqa: E402
@@ -137,7 +158,7 @@ KERNELS = [
     {"name": "pareto_filter", "ops": pareto_ops, "counter": "LAUNCHES",
      "source": "src/repro_torch/kernels/pareto_filter/csrc/pareto_filter.cu",
      "replaces": "src/repro/kernels/pareto_filter/kernel.py:54",
-     "paths": ("compile", "trained")},
+     "paths": ("compile", "trained", "serve", "scenarios", "fleet")},
     {"name": "ws_reduce", "ops": ws_ops, "counter": "LAUNCHES",
      "source": "src/repro_torch/kernels/ws_reduce/csrc/ws_reduce.cu",
      "replaces": "src/repro/kernels/ws_reduce/kernel.py:35",
@@ -146,7 +167,7 @@ KERNELS = [
      "counter": "RUNTIME_PICK_LAUNCHES",
      "source": "src/repro_torch/kernels/ws_reduce/csrc/runtime_pick.cu",
      "replaces": "src/repro/kernels/ws_reduce/kernel.py:35",
-     "paths": ("runtime", "trained")},
+     "paths": ("runtime", "trained", "serve", "scenarios", "fleet")},
     {"name": "fused_solve", "ops": fused_ops, "counter": "LAUNCHES",
      "source": "src/repro_torch/kernels/fused_solve/csrc/fused_solve.cu",
      "replaces": "src/repro/kernels/fused_solve/ops.py:79",
@@ -279,6 +300,31 @@ BASELINE_SOLVERS = (
     ("ws", baselines.solve_ws, dict(n_samples=10000, n_weights=11)),
     ("evo", baselines.solve_evo, dict(pop=100, n_evals=500)),
     ("pf", baselines.solve_pf, dict(n_points=9)))
+# The streaming phases run on the trained subq and qs at the default
+# HMOOCConfig.  [serve]: benchmarks/bench_server.py run()'s defaults, a
+# 64-request TPC-H stream of Poisson arrivals at 16 q/s, seed 0, through
+# ServerConfig() (max_batch 8, 1 s budget) on measured wall time.
+SERVE_N, SERVE_RATE_QPS = 64, 16.0
+SERVE_RTOL = 1e-4
+# [scenarios]: run_scenarios()'s settings (cap 1 static, elastic to 2, a
+# 0.3 s budget, steady load at 0.7 of the calibrated capacity, 4 report
+# windows), with the stream cut from 24 requests a tenant to 16.
+SCENARIO_N_PER_TENANT = 16
+SCENARIO_MAX_BATCH, SCENARIO_BUDGET_S = 1, 0.3
+SCENARIO_LOAD, SCENARIO_ELASTIC_CEILING, SCENARIO_WINDOWS = 0.7, 2, 4
+# The clock both [scenarios] and [fleet] charge: _calibrate_clock()'s
+# procedure on the card, at batch sizes 1, 2 and 8 (every cap the two
+# phases reach), cut from 24 unique queries and 3 measured passes to 16
+# and 1.  The fleet's replicas share one card in one process, so the
+# clock keeps the single worker knot ((1, 1.0),): bench_server's
+# FLEET_WORKER_SCALE models co-location on the reference's CPU host.
+CALIB_CAPS, CALIB_N, CALIB_PASSES = (1, 2, 8), 16, 1
+# [fleet]: run_fleet()'s overload mix (96 requests, one tenant per SLO
+# class, twice the calibrated capacity, cap 8, 1 s budget, stealing at
+# the budget) at 1, 2 and 4 workers.
+FLEET_N, FLEET_WORKERS, FLEET_MAX_BATCH = 96, (1, 2, 4), 8
+FLEET_BUDGET_S, FLEET_LOAD = 1.0, 2.0
+TENANT_PREFS = [(0.9, 0.1), (0.7, 0.3), (0.5, 0.5), (0.2, 0.8), (0.1, 0.9)]
 
 
 def log(msg: str) -> None:
@@ -2110,6 +2156,481 @@ def check_lm_against_host(device, n_layers: int = 2, cfg=None,
     return err
 
 
+# ---------------------------------------------------------------------------
+# The streaming layer: the server, scenarios under a calibrated clock, and
+# the fleet, on the trained models
+# ---------------------------------------------------------------------------
+
+def model_server(device, models, config: ServerConfig, tenants=(),
+                 cfg: HMOOCConfig = HMOOCConfig()) -> OptimizerServer:
+    """A server whose both halves are model-backed: the subq model compiles,
+    subq and qs re-tune at runtime, all on ``device``."""
+    return OptimizerServer(
+        config=config, tenants=tenants,
+        tuning=TuningService(model=models["subq"], cfg=cfg, device=device),
+        session=RuntimeSession(model_subq=models["subq"],
+                               model_qs=models["qs"], weights=WEIGHTS,
+                               device=device))
+
+
+def results_equal(a, b) -> bool:
+    """Two realized plans are the same bits."""
+    return all(np.array_equal(x, y) for x, y in (
+        (a.theta_p_eff, b.theta_p_eff), (a.theta_s_eff, b.theta_s_eff),
+        (a.final_join, b.final_join),
+        (a.sim.ana_latency, b.sim.ana_latency),
+        (a.sim.actual_latency, b.sim.actual_latency),
+        (a.sim.io_gb, b.sim.io_gb), (a.sim.cost, b.sim.cost)))
+
+
+def results_close(a, b, rtol: float) -> bool:
+    return np.array_equal(a.final_join, b.final_join) and all(
+        np.allclose(x, y, rtol=rtol, atol=0.0) for x, y in (
+            (a.theta_p_eff, b.theta_p_eff), (a.theta_s_eff, b.theta_s_eff),
+            (a.sim.actual_latency, b.sim.actual_latency),
+            (a.sim.io_gb, b.sim.io_gb), (a.sim.cost, b.sim.cost)))
+
+
+def timeline(srv: OptimizerServer, served) -> str:
+    """Everything a clocked serve decides, as one comparable string."""
+    st = srv.last_run
+    return repr(([(s.rid, s.status, s.admitted_s, s.compiled_s,
+                   s.finished_s, s.joined_running) for s in served],
+                 st.flush_windows, st.flush_caps, st.tenant_slots,
+                 st.rounds, st.n_micro_batches))
+
+
+def run_serve_path(device, models: dict) -> dict:
+    """``OptimizerServer.serve`` at full width on the trained models:
+    bench_server.run()'s 64-request TPC-H Poisson stream at 16 q/s through
+    ServerConfig() on measured wall time, after an untimed warm-up serve.
+    Gates: at most 2 K1 launches a solved query; one runtime_pick launch
+    and one host sync a fusion round, and no K1 or ws_reduce launch inside
+    a round; every served plan within SERVE_RTOL of the port's offline
+    pipeline on the card (the bit-identical count is printed)."""
+    t_phase = time.perf_counter()
+    warm = serving_stream("tpch", 8, seed=1, query_seed=1,
+                          arrivals=ArrivalModel("poisson", SERVE_RATE_QPS))
+    model_server(device, models, ServerConfig()).serve(warm)
+    torch.cuda.synchronize()
+    reqs = serving_stream("tpch", SERVE_N, seed=0,
+                          arrivals=ArrivalModel("poisson", SERVE_RATE_QPS))
+    srv = model_server(device, models, ServerConfig())
+    picks = {"calls": 0, "syncs": 0}
+    in_round = {"pareto_filter": 0, "ws_reduce": 0}
+
+    def weighted_pick(Fs, weights, **kw):
+        out, syncs = count_syncs(lambda: pick_orig(Fs, weights, **kw))
+        picks["calls"] += 1
+        picks["syncs"] += syncs
+        return out
+
+    def step_round():
+        l0 = read_launches()
+        try:
+            return step_orig()
+        finally:
+            l1 = read_launches()
+            for k in in_round:
+                in_round[k] += l1[k] - l0[k]
+
+    timers = Timers()
+    orig = (runtime_mod.weighted_pick_batch, service_mod.fused_stage_eval,
+            hmooc.pareto_mask_fast, hmooc.pareto_masks_fast,
+            runtime_mod.score_requests)
+    pick_orig = orig[0]
+    step_orig = srv.session.step_round
+    runtime_mod.weighted_pick_batch = timers.wrap("weighted_pick_batch",
+                                                  weighted_pick)
+    service_mod.fused_stage_eval = timers.wrap("stage_eval", orig[1])
+    hmooc.pareto_mask_fast = timers.wrap("pareto_masks", orig[2])
+    hmooc.pareto_masks_fast = timers.wrap("pareto_masks", orig[3])
+    runtime_mod.score_requests = timers.wrap("score_requests", orig[4])
+    srv.session.step_round = timers.wrap("step_round", step_round)
+    srv.session.realize = timers.wrap("realize", srv.session.realize)
+    srv.tuning.tune_batch = timers.wrap("tune_batch", srv.tuning.tune_batch)
+    solved0 = srv.tuning.totals.n_solved
+    reset_launches()
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        served = srv.serve(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        (runtime_mod.weighted_pick_batch, service_mod.fused_stage_eval,
+         hmooc.pareto_mask_fast, hmooc.pareto_masks_fast,
+         runtime_mod.score_requests) = orig
+        del srv.session.step_round, srv.session.realize
+        del srv.tuning.tune_batch
+    launches = read_launches()
+    # The card's busy time in the same serve (a fresh server and freshly
+    # built queries, so every solve and embedding runs again), traced; set
+    # against the untraced wall above it gives the card's idle share.
+    busy_ms = device_busy_ms(lambda: model_server(
+        device, models, ServerConfig()).serve(serving_stream(
+            "tpch", SERVE_N, seed=0,
+            arrivals=ArrivalModel("poisson", SERVE_RATE_QPS))))
+    st = srv.last_run
+    rep = srv.latency_report(served)
+    solved = srv.tuning.totals.n_solved - solved0
+    queries = [s.request.query for s in served]
+    cts = [s.ct for s in served]
+    check_results(queries, cts)
+    check_theta_bounds(queries, cts)
+    check_runtime_results(queries, cts, [s.result for s in served])
+    offline_cts = TuningService(model=models["subq"], cfg=HMOOCConfig(),
+                                device=device).tune_batch(queries, WEIGHTS)
+    offline = RuntimeSession(model_subq=models["subq"],
+                             model_qs=models["qs"], weights=WEIGHTS,
+                             device=device).run_batch(queries, offline_cts)
+    identical = sum(results_equal(s.result, r)
+                    for s, r in zip(served, offline))
+    far = [s.rid for s, r in zip(served, offline)
+           if not results_close(s.result, r, SERVE_RTOL)]
+    row = {"requests": len(reqs), "rate_qps": SERVE_RATE_QPS,
+           "served": rep["n_finished"], "qps": rep["qps"],
+           "makespan_s": rep["makespan_s"], "wall_s": wall,
+           "solve_p50_s": rep["solve_latency_s"]["p50"],
+           "solve_p99_s": rep["solve_latency_s"]["p99"],
+           "plan_p50_s": rep["plan_latency_s"]["p50"],
+           "plan_p99_s": rep["plan_latency_s"]["p99"],
+           "goodput": rep["goodput"], "micro_batches": st.n_micro_batches,
+           "joined_running": st.n_joined_running, "rounds": st.rounds,
+           "solved": solved, "pareto_launches": launches["pareto_filter"],
+           "runtime_pick_launches": launches["runtime_pick"],
+           "host_syncs_per_round": (picks["syncs"] / st.rounds
+                                    if st.rounds else None),
+           "k1_ws_launches_inside_rounds": in_round,
+           "flush_window_s_sum": sum(w for w, _ in st.flush_windows),
+           "tune_window_s_sum": sum(w for w, _ in st.tune_windows),
+           "host_s": {k: round(v, 6) for k, v in timers.t.items()},
+           "card_busy_ms": busy_ms,
+           "card_idle_share": 1.0 - busy_ms / (wall * 1e3),
+           "bit_identical_to_offline": identical}
+    log(f"[serve] {json.dumps(row)}")
+    log(f"[serve] {len(reqs)} requests at {SERVE_RATE_QPS} q/s: "
+        f"{rep['qps']:.3f} q/s served, plan p50/p99 "
+        f"{row['plan_p50_s']:.4f}/{row['plan_p99_s']:.4f} s (budget "
+        f"{srv.config.solve_budget_s} s), goodput {rep['goodput']:.3f}, "
+        f"{st.n_micro_batches} micro-batches, {st.n_joined_running} joins, "
+        f"{st.rounds} rounds; card busy {busy_ms:.3f} ms of a "
+        f"{wall * 1e3:.3f} ms serve (profiler against untraced wall time); "
+        f"{identical} of {len(served)} plans bit-identical to the offline "
+        f"pipeline; phase {time.perf_counter() - t_phase:.3f} s")
+    if rep["n_finished"] != len(reqs):
+        raise AssertionError(f"serve: {rep['n_finished']} of {len(reqs)} "
+                             "requests finished")
+    if launches["pareto_filter"] > 2 * solved:
+        raise AssertionError(f"serve: {launches['pareto_filter']} K1 "
+                             f"launches for {solved} solved queries; at "
+                             "most 2 a query")
+    if not (launches["runtime_pick"] == picks["calls"] == st.rounds
+            == picks["syncs"]):
+        raise AssertionError(
+            f"serve: {launches['runtime_pick']} runtime_pick launches and "
+            f"{picks['syncs']} host syncs for {picks['calls']} picks in "
+            f"{st.rounds} rounds; one of each a round")
+    if any(in_round.values()):
+        raise AssertionError(f"serve: K1 or ws_reduce launched inside a "
+                             f"fusion round ({in_round})")
+    if far:
+        raise AssertionError(f"serve: requests {far} differ from the "
+                             f"offline pipeline beyond rtol {SERVE_RTOL}")
+    require_launches("serve", launches)
+    return {"launches": launches, "row": row}
+
+
+def unique_burst(n: int, seed: int):
+    """``n`` distinct queries arriving at once (no response-cache hit)."""
+    base = serving_stream("tpch", 4 * n, seed=seed,
+                          arrivals=ArrivalModel(kind="fixed", rate_qps=1e6))
+    seen, out = set(), []
+    for r in base:
+        if r.query.qid not in seen:
+            seen.add(r.query.qid)
+            out.append(r)
+    return [dataclasses.replace(r, rid=i, arrival_s=0.0)
+            for i, r in enumerate(out[:n])]
+
+
+def calibrate_clock(device, models) -> ServiceTimeModel:
+    """benchmarks/bench_server.py _calibrate_clock()'s procedure on the
+    card: a burst of CALIB_N distinct queries served at each of CALIB_CAPS
+    on a fresh server, a first pass discarded and CALIB_PASSES more
+    measured; each batch size's lower-quartile flush window is a knot, the
+    round cost is the serve walls' remainder over their rounds, and the
+    cheap member's cost the median flush of a warm server re-serving the
+    burst at cap 1."""
+    n, passes = CALIB_N, CALIB_PASSES
+    windows, wall_rest, rounds = {}, 0.0, 0
+    for cap in CALIB_CAPS:
+        for attempt in range(1 + passes):
+            srv = model_server(device, models, ServerConfig(
+                max_batch=cap, solve_budget_s=math.inf,
+                admit_mid_session=False))
+            srv.serve(unique_burst(n, 987))
+            if attempt == 0:
+                continue
+            st = srv.last_run
+            for w, size in st.flush_windows:
+                windows.setdefault(size, []).append(w)
+            wall_rest += max(0.0, st.wall_time_s
+                             - sum(w for w, _ in st.flush_windows))
+            rounds += st.rounds
+    srv = model_server(device, models, ServerConfig(
+        max_batch=1, solve_budget_s=math.inf, admit_mid_session=False))
+    cheap = []
+    for attempt in range(1 + passes):
+        srv.serve(unique_burst(n, 987))
+        if attempt:
+            cheap.extend(w for w, _ in srv.last_run.flush_windows)
+    return ServiceTimeModel(
+        flush_points=tuple((size, float(np.percentile(ws, 25)))
+                           for size, ws in sorted(windows.items())),
+        round_s=wall_rest / rounds if rounds else 0.0,
+        cheap_s=float(np.median(cheap)) if cheap else 0.0)
+
+
+def clocked_capacity(device, models, clock, n: int, max_batch: int,
+                     seed: int) -> float:
+    """Queries a second, in the clock's world, of a throwaway server
+    draining ``n`` requests that arrive at once (duplicates included)."""
+    probe = [dataclasses.replace(r, rid=i, arrival_s=0.0)
+             for i, r in enumerate(serving_stream(
+                 "tpch", n, seed=seed,
+                 arrivals=ArrivalModel(kind="fixed", rate_qps=1e6)))]
+    srv = model_server(device, models, ServerConfig(
+        max_batch=max_batch, solve_budget_s=math.inf, clock=clock))
+    span = max(s.finished_s for s in srv.serve(probe))
+    return len(probe) / span if span > 0 else 1.0
+
+
+class Replay:
+    """One-at-a-time offline pipeline on the card, memoised by (query,
+    weights): the reference an admitted request's plan is held to."""
+
+    def __init__(self, device, models):
+        self.device, self.models = device, models
+        self.svc = TuningService(model=models["subq"], cfg=HMOOCConfig(),
+                                 device=device)
+        self.pools = CandidatePoolCache()
+        self.memo = {}
+
+    def __call__(self, query, weights):
+        key = (query.qid, query_fingerprint(query), tuple(weights))
+        if key not in self.memo:
+            ct = self.svc.tune_batch([query], weights)[0]
+            sess = RuntimeSession(model_subq=self.models["subq"],
+                                  model_qs=self.models["qs"],
+                                  weights=weights, pool_cache=self.pools,
+                                  device=self.device)
+            self.memo[key] = sess.run_batch([query], [ct])[0]
+        return self.memo[key]
+
+
+def run_scenarios_path(device, models: dict, clock) -> dict:
+    """The nine-scenario matrix (diurnal, flash-crowd and ramp arrivals
+    crossed with steady, preference-shift and churn timelines), each
+    served by a static and an elastic server under the calibrated clock,
+    the elastic one twice.  Gates: the two elastic serves' timelines are
+    identical, and every full-quality survivor of either policy equals the
+    one-at-a-time offline pipeline under its stamped weights exactly."""
+    t_phase = time.perf_counter()
+    elastic_cap = SCENARIO_ELASTIC_CEILING * SCENARIO_MAX_BATCH
+    capacity = clocked_capacity(device, models, clock,
+                                3 * SCENARIO_N_PER_TENANT,
+                                SCENARIO_MAX_BATCH, seed=17)
+    rate = SCENARIO_LOAD * capacity / 3.0
+    reserve = 2.0 / capacity
+    static_cfg = ServerConfig(max_batch=SCENARIO_MAX_BATCH,
+                              solve_budget_s=SCENARIO_BUDGET_S,
+                              solve_reserve_s=reserve, clock=clock)
+    elastic_cfg = dataclasses.replace(static_cfg, elastic=ElasticPolicy(
+        min_batch=SCENARIO_MAX_BATCH, max_batch=elastic_cap,
+        target_delay_s=0.25 * SCENARIO_BUDGET_S))
+    log(f"[scenarios] clock knots {list(clock.flush_points)}, round "
+        f"{clock.round_s:.6f} s, cheap {clock.cheap_s:.6f} s; capacity "
+        f"{capacity:.3f} q/s in the clock's world, {rate:.3f} q/s a tenant")
+    runs = []
+    reset_launches()
+    t_serve = time.perf_counter()
+    for spec in scenario_matrix(n_per_tenant=SCENARIO_N_PER_TENANT,
+                                rate_qps=rate):
+        sc = spec.build(seed=0)
+        out = {}
+        for name, cfg in (("static", static_cfg), ("elastic", elastic_cfg),
+                          ("elastic again", elastic_cfg)):
+            srv = model_server(device, models, cfg, tenants=sc.tenants)
+            out[name] = (srv, srv.serve(sc.requests,
+                                        capacity_events=sc.capacity_events))
+        runs.append((spec, sc, out))
+    serve_s = time.perf_counter() - t_serve
+    launches = read_launches()
+    replay = Replay(device, models)
+    rows, bad = [], []
+    for spec, sc, out in runs:
+        if timeline(*out["elastic"]) != timeline(*out["elastic again"]):
+            bad.append(f"{spec.name}: two clocked serves disagree")
+        span = (max(r.arrival_s for r in sc.requests)
+                - min(r.arrival_s for r in sc.requests))
+        row = {"scenario": spec.name, "requests": len(sc.requests)}
+        for name in ("static", "elastic"):
+            srv, served = out[name]
+            n_surv = 0
+            for s in served:
+                if s.status in REJECTED_STATUSES:
+                    if s.result is not None:
+                        bad.append(f"{spec.name}/{name}: rejected rid "
+                                   f"{s.rid} has a plan")
+                    continue
+                if s.status != "served":
+                    continue
+                n_surv += 1
+                w = tuple(s.request.weights) if s.request.weights \
+                    is not None else WEIGHTS
+                if not results_equal(s.result, replay(s.request.query, w)):
+                    bad.append(f"{spec.name}/{name}: rid {s.rid} differs "
+                               "from its offline replay")
+            rep = srv.latency_report(served,
+                                     window_s=span / SCENARIO_WINDOWS + 1e-9)
+            strict = rep["tenants"]["strict"]
+            row[name] = {"goodput": rep["goodput"],
+                         "strict_p99_s": strict["plan_latency_s"]["p99"],
+                         "plan_p99_s": rep["plan_latency_s"]["p99"],
+                         "shed_rate": rep["shed_rate"],
+                         "degrade_rate": rep["degrade_rate"],
+                         "rate_limited_rate": rep["rate_limited_rate"],
+                         "survivors": n_surv,
+                         "max_cap": max(srv.last_run.flush_caps, default=0)}
+        rows.append(row)
+        log(f"[scenarios] {json.dumps(row)}")
+    row = {"scenarios": len(rows), "serves": 3 * len(rows),
+           "serve_s": serve_s, "replays": len(replay.memo),
+           "capacity_qps": capacity, "rate_qps_per_tenant": rate,
+           "launches": launches,
+           "phase_s": time.perf_counter() - t_phase}
+    log(f"[scenarios] {json.dumps(row)}")
+    if bad:
+        raise AssertionError("scenarios: " + "; ".join(bad[:10]))
+    require_launches("scenarios", launches)
+    return {"launches": launches, "rows": rows, "row": row}
+
+
+def overload_specs(rate_qps: float, budget_s: float):
+    """bench_server._overload_specs: one tenant per SLO class at a third
+    of the rate each, UDAO-style distinct weights; the strict tenant in a
+    higher tier, the best-effort tenant's budget soft (10x)."""
+    return [TenantSpec(
+        name=slo, slo=slo, weights=TENANT_PREFS[i % len(TENANT_PREFS)],
+        solve_budget_s=10 * budget_s if slo == "best_effort" else budget_s,
+        priority=1 if slo == "strict" else 0,
+        arrivals=ArrivalModel(kind="poisson", rate_qps=rate_qps / 3))
+        for i, slo in enumerate(("strict", "degrade", "best_effort"))]
+
+
+def no_torch_in(blob: bytes) -> None:
+    """A published snapshot unpickles without torch: it holds no tensor."""
+    class Guard(pickle.Unpickler):
+        def find_class(self, module, name):
+            if module.split(".")[0] == "torch":
+                raise AssertionError(f"a snapshot holds {module}.{name}")
+            return super().find_class(module, name)
+    Guard(io.BytesIO(blob)).load()
+
+
+def run_fleet_path(device, models: dict, clock) -> dict:
+    """``OptimizerFleet`` at 1, 2 and 4 workers on the card, affinity and
+    random routing (and everything on worker 0 at the widest), on
+    run_fleet()'s overload mix under the calibrated clock.  Gates: a
+    request served at full quality at two widths gets the same plan, and
+    the widest affinity fleet's published caches round-trip through a
+    file into a warm fleet that serves the same plans."""
+    t_phase = time.perf_counter()
+    capacity = clocked_capacity(device, models, clock, FLEET_N,
+                                FLEET_MAX_BATCH, seed=17)
+    rate = FLEET_LOAD * capacity
+    specs = overload_specs(rate, FLEET_BUDGET_S)
+    counts = [FLEET_N // 3 + (1 if i < FLEET_N % 3 else 0) for i in range(3)]
+    reqs = multi_tenant_stream("tpch", specs, counts, seed=0)
+    cfg = ServerConfig(max_batch=FLEET_MAX_BATCH,
+                       solve_budget_s=FLEET_BUDGET_S,
+                       solve_reserve_s=2.0 / capacity, clock=clock)
+    store = CacheStore()
+    fleets = [(n, p) for n in FLEET_WORKERS for p in ("affinity", "random")]
+    fleets.append((max(FLEET_WORKERS), "single"))
+    out, rows = {}, []
+    reset_launches()
+    for n, policy in fleets:
+        fleet = OptimizerFleet(
+            n_workers=n, config=cfg, weights=WEIGHTS, cfg=HMOOCConfig(),
+            model=models["subq"], tenants=specs, policy=policy,
+            steal_delay_s=FLEET_BUDGET_S, seed=0, device=device,
+            cache_store=store if (n, policy) == (max(FLEET_WORKERS),
+                                                 "affinity") else None)
+        t0 = time.perf_counter()
+        served = fleet.serve(reqs)
+        wall = time.perf_counter() - t0
+        rep = fleet.latency_report(served)
+        caches = fleet.cache_report()
+        out[(n, policy)] = {s.rid: s for s in served}
+        row = {"workers": n, "policy": policy, "qps": rep["qps"],
+               "makespan_s": rep["makespan_s"], "goodput": rep["goodput"],
+               "strict_p99_s": rep["tenants"]["strict"][
+                   "plan_latency_s"]["p99"],
+               "shed_rate": rep["shed_rate"],
+               "degrade_rate": rep["degrade_rate"],
+               "rate_limited_rate": rep["rate_limited_rate"],
+               "stolen": rep["n_stolen"],
+               "worker_counts": rep["worker_counts"],
+               "response_hit_rate": caches["response"]["hit_rate"],
+               "eset_warm_rate": caches["effective_set"]["warm_rate"],
+               "wall_s": wall}
+        rows.append(row)
+        log(f"[fleet] {json.dumps(row)}")
+    launches = read_launches()
+    bad = []
+    base = out[fleets[0]]
+    for key in fleets[1:]:
+        for rid, s in out[key].items():
+            if s.status == "served" and base[rid].status == "served" \
+                    and not results_equal(s.result, base[rid].result):
+                bad.append(f"{key}: rid {rid} differs from 1 worker")
+    for kind in store.kinds():
+        no_torch_in(store.fetch(kind))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "caches.pkl"
+        store.save(path)
+        loaded = CacheStore.load(path)
+    if loaded.kinds() != store.kinds() or set(store.kinds()) != {
+            "eset", "response", "pools"}:
+        bad.append(f"cache store kinds {store.kinds()} / {loaded.kinds()}")
+    warm = OptimizerFleet(n_workers=1, config=cfg, weights=WEIGHTS,
+                          cfg=HMOOCConfig(), model=models["subq"],
+                          tenants=specs, cache_store=loaded,
+                          publish_on_serve=False, device=device)
+    restored = len(warm.workers[0].tuning._results)
+    served = warm.serve(reqs)
+    hits = warm.cache_report()["response"]["hit_rate"]
+    widest = out[(max(FLEET_WORKERS), "affinity")]
+    for s in served:
+        w = widest[s.rid]
+        if s.status == "served" and w.status == "served" \
+                and not results_equal(s.result, w.result):
+            bad.append(f"warm start: rid {s.rid} differs")
+    row = {"capacity_qps": capacity, "rate_qps": rate,
+           "requests": len(reqs), "restored_responses": restored,
+           "warm_response_hit_rate": hits, "launches": launches,
+           "phase_s": time.perf_counter() - t_phase}
+    log(f"[fleet] {json.dumps(row)}")
+    if not restored:
+        bad.append("the warm fleet restored no response")
+    if bad:
+        raise AssertionError("fleet: " + "; ".join(bad[:10]))
+    require_launches("fleet", launches)
+    return {"launches": launches, "rows": rows, "row": row}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2158,6 +2679,13 @@ def main() -> int:
     train_path = run_train_path(device)
     trained_path = run_trained_path(device, train_path["models"])
     run_baselines(device, train_path["models"]["subq"])
+    serve_path = run_serve_path(device, train_path["models"])
+    t0 = time.perf_counter()
+    clock = calibrate_clock(device, train_path["models"])
+    log(f"[scenarios] clock calibrated on the card in "
+        f"{time.perf_counter() - t0:.3f} s")
+    scenarios_path = run_scenarios_path(device, train_path["models"], clock)
+    fleet_path = run_fleet_path(device, train_path["models"], clock)
     lm_path = run_lm_path(device)
     torch.cuda.empty_cache()
     check_lm_flash_against_plain(device)
@@ -2168,6 +2696,9 @@ def main() -> int:
              "hmooc2": hmooc2_path["launches"],
              "train": train_path["launches"],
              "trained": trained_path["launches"],
+             "serve": serve_path["launches"],
+             "scenarios": scenarios_path["launches"],
+             "fleet": fleet_path["launches"],
              "lm": lm_path["launches"]}
     kernels = []
     entries["flash_attention"]["lm_launches_by_body"] = \

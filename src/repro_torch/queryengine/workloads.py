@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import dataclasses
 import zlib
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -25,8 +25,9 @@ from .plan import Operator, Query, SubQ, cbo_estimate
 
 __all__ = [
     "Table", "TPCH_TABLES", "TPCDS_TABLES",
-    "make_query", "make_benchmark", "parametric_variants", "serving_stream",
-    "default_workload",
+    "make_query", "make_benchmark", "parametric_variants", "default_workload",
+    "serving_stream", "ArrivalModel", "StreamRequest", "TenantSpec",
+    "multi_tenant_stream", "SLO_CLASSES",
 ]
 
 
@@ -282,9 +283,250 @@ def parametric_variants(benchmark: str, template: int, n: int, *,
             for v in range(start, start + n)]
 
 
+_STATIONARY_KINDS = ("poisson", "uniform", "fixed")
+_NONSTATIONARY_KINDS = ("diurnal", "spike", "ramp")
+
+
+@dataclasses.dataclass(frozen=True)
+class ArrivalModel:
+    """Explicit, seeded arrival-time model for a serving stream.
+
+    Inter-arrival gaps are drawn from a named distribution with their own
+    seed stream (independent of the template/variant draws), so stream
+    *timing* is reproducible and composable: the same query sequence can be
+    replayed under different load shapes.
+
+    Stationary kinds (constant ``rate_qps``):
+      * ``poisson`` — exponential gaps with mean ``1/rate_qps`` (open-loop
+        Poisson arrivals, the standard serving-load model);
+      * ``uniform`` — gaps uniform on ``[0, 2/rate_qps]`` (same mean rate,
+        bounded burstiness);
+      * ``fixed``   — deterministic gaps of exactly ``1/rate_qps``.
+
+    Nonstationary kinds (inhomogeneous Poisson processes drawn by seeded
+    thinning against :meth:`rate_at`, so the whole time-varying stream is
+    still a pure function of the seed):
+      * ``diurnal`` — sinusoidal rate
+        ``rate_qps · (1 + amplitude·sin(2π·(t−start_s)/period_s))``:
+        the compressed diurnal traffic curve;
+      * ``spike``   — flash crowd: ``rate_qps`` outside the window,
+        ``rate_qps·spike_factor`` on ``[spike_at_s, spike_at_s+spike_dur_s)``;
+      * ``ramp``    — linear rate from ``rate_qps`` to ``ramp_to_qps``
+        over ``ramp_dur_s`` starting at ``start_s``, then holding.
+    """
+    kind: str = "poisson"
+    rate_qps: float = 16.0
+    start_s: float = 0.0
+    # diurnal
+    period_s: float = 60.0
+    amplitude: float = 0.8
+    # spike (flash crowd)
+    spike_at_s: float = 2.0
+    spike_dur_s: float = 2.0
+    spike_factor: float = 4.0
+    # ramp
+    ramp_to_qps: float = 32.0
+    ramp_dur_s: float = 4.0
+
+    def _validate(self) -> None:
+        if self.kind not in _STATIONARY_KINDS + _NONSTATIONARY_KINDS:
+            raise ValueError(f"unknown arrival kind: {self.kind!r}")
+        if self.rate_qps <= 0:
+            raise ValueError(f"rate_qps must be positive, got {self.rate_qps}")
+        if self.kind == "diurnal":
+            if not 0.0 <= self.amplitude < 1.0:
+                raise ValueError(
+                    f"amplitude must be in [0, 1), got {self.amplitude} "
+                    "(>= 1 would make the instantaneous rate nonpositive)")
+            if self.period_s <= 0:
+                raise ValueError(f"period_s must be positive, got "
+                                 f"{self.period_s}")
+        if self.kind == "spike" and (self.spike_factor <= 0
+                                     or self.spike_dur_s < 0):
+            raise ValueError("spike_factor must be positive and spike_dur_s "
+                             f"nonnegative, got {self.spike_factor}, "
+                             f"{self.spike_dur_s}")
+        if self.kind == "ramp" and (self.ramp_to_qps <= 0
+                                    or self.ramp_dur_s <= 0):
+            raise ValueError("ramp_to_qps and ramp_dur_s must be positive, "
+                             f"got {self.ramp_to_qps}, {self.ramp_dur_s}")
+
+    def rate_at(self, t: float) -> float:
+        """Instantaneous arrival rate (qps) at simulated time ``t``."""
+        self._validate()
+        if self.kind == "diurnal":
+            phase = 2.0 * np.pi * (t - self.start_s) / self.period_s
+            return self.rate_qps * (1.0 + self.amplitude * np.sin(phase))
+        if self.kind == "spike":
+            hot = self.spike_at_s <= t < self.spike_at_s + self.spike_dur_s
+            return self.rate_qps * (self.spike_factor if hot else 1.0)
+        if self.kind == "ramp":
+            frac = np.clip((t - self.start_s) / self.ramp_dur_s, 0.0, 1.0)
+            return float(self.rate_qps
+                         + (self.ramp_to_qps - self.rate_qps) * frac)
+        return self.rate_qps
+
+    def _max_rate(self) -> float:
+        if self.kind == "diurnal":
+            return self.rate_qps * (1.0 + self.amplitude)
+        if self.kind == "spike":
+            return self.rate_qps * max(self.spike_factor, 1.0)
+        if self.kind == "ramp":
+            return max(self.rate_qps, self.ramp_to_qps)
+        return self.rate_qps
+
+    def draw(self, n: int, seed: int = 0) -> np.ndarray:
+        """(n,) nondecreasing arrival times, deterministic per seed."""
+        self._validate()
+        rng = np.random.default_rng(np.random.SeedSequence([seed, 0xA221]))
+        mean_gap = 1.0 / self.rate_qps
+        if self.kind == "poisson":
+            gaps = rng.exponential(mean_gap, size=n)
+        elif self.kind == "uniform":
+            gaps = rng.uniform(0.0, 2.0 * mean_gap, size=n)
+        elif self.kind == "fixed":
+            gaps = np.full(n, mean_gap)
+        else:
+            # Inhomogeneous Poisson via thinning: candidate arrivals at the
+            # envelope rate, each accepted with probability
+            # rate_at(t)/rate_max — exact, and a pure function of the seed.
+            rmax = self._max_rate()
+            out = np.empty(n, np.float64)
+            got = 0
+            t = self.start_s
+            while got < n:
+                t += rng.exponential(1.0 / rmax)
+                if rng.random() * rmax < self.rate_at(t):
+                    out[got] = t
+                    got += 1
+            return out
+        return self.start_s + np.cumsum(gaps)
+
+
+@dataclasses.dataclass(frozen=True)
+class StreamRequest:
+    """One timed tuning request of a serving stream.
+
+    ``weights`` carries the tenant's preference weights *effective at this
+    request's arrival time*.  Stationary streams leave it ``None`` (the
+    server falls back to the tenant's registered weights); scenario streams
+    with mid-stream preference shifts stamp it per request at build time,
+    so the (request → weights) mapping is a pure function of the scenario
+    seed and replay-equivalence holds exactly across shift boundaries.
+    """
+    rid: int                 # position in the stream (stable request id)
+    query: Query
+    arrival_s: float         # simulated-clock arrival time
+    tenant: str = "default"  # issuing tenant (multi-tenant admission)
+    weights: Optional[Tuple[float, float]] = None  # None → tenant default
+
+
+SLO_CLASSES = ("strict", "degrade", "best_effort")
+
+
+@dataclasses.dataclass(frozen=True)
+class TenantSpec:
+    """One tenant of a multi-tenant serving deployment.
+
+    Carries both halves of tenancy: the *client side* (an independent
+    seeded arrival process — each tenant is its own open-loop stream) and
+    the *server side* admission policy (preference weights for the MOO
+    picks, a weighted-fair share, a priority tier, and an optional
+    per-tenant solve budget overriding the server default).  UDAO-style
+    cost/performance preferences are per-user by nature; the spec is where
+    a user's ``weights`` live.
+
+    ``slo`` declares what the server should do when the tenant's solve
+    budget has become *unmeetable* for a waiting request (the head would
+    start solving past ``arrival + budget − reserve·E[batch]``):
+
+    * ``"best_effort"`` (default) — keep queueing; the request is served
+      late (the pre-overload behavior).
+    * ``"degrade"`` — admit it through the cheap compile path instead
+      (template-cache-only solve / aggregated default θ, no fresh
+      Algorithm 1), trading plan quality for admission latency.
+    * ``"strict"`` — reject it outright (shed): the tenant prefers an
+      explicit error over a blown budget, keeping its served tail inside
+      the budget under overload.
+
+    ``rate_limit_qps`` arms a per-tenant token bucket *ahead of* the
+    waiting room: arrivals beyond the sustained rate (with a burst
+    allowance of ``rate_limit_burst`` tokens) are rejected at the door
+    with status ``"rate_limited"`` — they never enqueue, never solve, and
+    never consume a batch slot.  ``None`` (default) disables the limiter.
+    """
+    name: str
+    weights: Optional[Tuple[float, float]] = None  # None → server default
+    arrivals: ArrivalModel = ArrivalModel()
+    share: float = 1.0               # DRR weight within the priority tier
+    priority: int = 0                # higher tiers compose first
+    solve_budget_s: Optional[float] = None
+    slo: str = "best_effort"         # overload policy: strict|degrade|best_effort
+    rate_limit_qps: Optional[float] = None   # None → no rate limiter
+    rate_limit_burst: float = 4.0            # bucket depth (tokens)
+
+    def __post_init__(self):
+        if not self.name:
+            raise ValueError("tenant name must be non-empty")
+        if self.share <= 0:
+            raise ValueError(f"share must be positive, got {self.share}")
+        if self.slo not in SLO_CLASSES:
+            raise ValueError(
+                f"unknown SLO class {self.slo!r}; expected one of "
+                f"{SLO_CLASSES}")
+        if self.rate_limit_qps is not None and self.rate_limit_qps <= 0:
+            raise ValueError(f"rate_limit_qps must be positive, got "
+                             f"{self.rate_limit_qps}")
+        if self.rate_limit_burst < 1.0:
+            raise ValueError(f"rate_limit_burst must be >= 1 (a bucket that "
+                             f"cannot hold one token admits nothing), got "
+                             f"{self.rate_limit_burst}")
+
+
+def _tenant_seed(seed: int, name: str) -> int:
+    """Derived per-tenant stream seed: independent across tenant names."""
+    return int(np.random.SeedSequence(
+        [seed, zlib.crc32(name.encode()) & 0xFFFFFFFF]).generate_state(1)[0]
+        & 0x7FFFFFFF)
+
+
+def multi_tenant_stream(benchmark: str, tenants: Sequence[TenantSpec],
+                        n_per_tenant, *, seed: int = 0, zipf_a: float = 1.3,
+                        n_variants: int = 3, query_seed: int = 0
+                        ) -> List["StreamRequest"]:
+    """Merge per-tenant serving streams into one timed request stream.
+
+    Each tenant draws its own Zipf template mix and its own arrival
+    process (``spec.arrivals``) under a name-derived seed, so tenant
+    populations are independent and individually reproducible; the merged
+    stream is sorted by arrival time with globally unique ``rid``s.
+    ``n_per_tenant`` is one count shared by all tenants or a per-tenant
+    sequence aligned with ``tenants``.
+    """
+    names = [t.name for t in tenants]
+    if len(set(names)) != len(names):
+        raise ValueError(f"duplicate tenant names: {names}")
+    if isinstance(n_per_tenant, (int, np.integer)):
+        counts = [int(n_per_tenant)] * len(tenants)
+    else:
+        counts = [int(n) for n in n_per_tenant]
+        if len(counts) != len(tenants):
+            raise ValueError(
+                f"got {len(counts)} counts for {len(tenants)} tenants")
+    merged: List[StreamRequest] = []
+    for spec, n in zip(tenants, counts):
+        reqs = serving_stream(benchmark, n, seed=_tenant_seed(seed, spec.name),
+                              zipf_a=zipf_a, n_variants=n_variants,
+                              arrivals=spec.arrivals, query_seed=query_seed)
+        merged.extend(dataclasses.replace(r, tenant=spec.name) for r in reqs)
+    merged.sort(key=lambda r: (r.arrival_s, r.tenant, r.rid))
+    return [dataclasses.replace(r, rid=i) for i, r in enumerate(merged)]
+
+
 def serving_stream(benchmark: str, n: int, *, seed: int = 0,
                    zipf_a: float = 1.3, n_variants: int = 3,
-                   query_seed: int = 0) -> List[Query]:
+                   arrivals: Optional[ArrivalModel] = None,
+                   query_seed: int = 0):
     """A production-like stream of ``n`` tuning requests.
 
     Template popularity is Zipf-distributed (rank weights ``1/r^a`` over a
@@ -296,9 +538,11 @@ def serving_stream(benchmark: str, n: int, *, seed: int = 0,
     ``query_seed`` threads through to :func:`make_query`, so distinct query
     populations (not just distinct orderings) can be drawn reproducibly.
 
-    Returns a plain ``List[Query]`` in stream order (the batch-mode
-    interface).  Timed streams (arrival models, tenants) belong to the
-    streaming layer, which this package does not carry yet.
+    Without ``arrivals`` the return value is a plain ``List[Query]`` in
+    stream order (the batch-mode interface).  With an :class:`ArrivalModel`
+    each request is stamped with an explicit seeded arrival time and the
+    return value is a ``List[StreamRequest]`` — the streaming-admission
+    interface consumed by ``repro_torch.serve.server.OptimizerServer``.
     """
     n_t = 22 if benchmark == "tpch" else 102
     rng = np.random.default_rng(np.random.SeedSequence([seed, 0xC0FFEE]))
@@ -317,7 +561,11 @@ def serving_stream(benchmark: str, n: int, *, seed: int = 0,
             built[(t, v)] = make_query(benchmark, t, variant=v,
                                        seed=query_seed)
         out.append(built[(t, v)])
-    return out
+    if arrivals is None:
+        return out
+    times = arrivals.draw(n, seed)
+    return [StreamRequest(rid=i, query=q, arrival_s=float(t))
+            for i, (q, t) in enumerate(zip(out, times))]
 
 
 def default_workload(benchmark: str, n_per_template: int = 4, *,

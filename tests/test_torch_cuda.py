@@ -795,3 +795,101 @@ def test_baselines_with_card_model(cuda_device, solver):
     np.testing.assert_array_equal(U, U_h)
     np.testing.assert_allclose(F, F_h, rtol=1e-4)
     assert n == n_h
+
+
+# ---------------------------------------------------------------------------
+# The streaming layer on the card
+# ---------------------------------------------------------------------------
+
+def _stream_case(kind):
+    from repro_torch.queryengine.workloads import (ArrivalModel, TenantSpec,
+                                                   multi_tenant_stream)
+    if kind == "single":
+        return serving_stream("tpch", 12, seed=1,
+                              arrivals=ArrivalModel(rate_qps=40.0)), ()
+    specs = [TenantSpec(name="strict", slo="strict", priority=1,
+                        solve_budget_s=0.2,
+                        arrivals=ArrivalModel(rate_qps=60.0)),
+             TenantSpec(name="deg", slo="degrade", weights=(0.5, 0.5),
+                        solve_budget_s=0.2,
+                        arrivals=ArrivalModel(rate_qps=60.0)),
+             TenantSpec(name="be", weights=(0.1, 0.9), rate_limit_qps=20.0,
+                        rate_limit_burst=2.0,
+                        arrivals=ArrivalModel(rate_qps=60.0))]
+    return multi_tenant_stream("tpch", specs, 5, seed=13), specs
+
+
+def _served_rows(served):
+    return repr([(s.rid, s.tenant, s.status, s.admitted_s, s.compiled_s,
+                  s.finished_s, s.joined_running, s.worker)
+                 for s in served])
+
+
+def _assert_served_equal(got, want):
+    assert _served_rows(got) == _served_rows(want)
+    for a, b in zip(got, want):
+        assert (a.result is None) == (b.result is None)
+        if a.result is None:
+            continue
+        np.testing.assert_array_equal(a.ct.theta_c, b.ct.theta_c)
+        np.testing.assert_array_equal(a.ct.front, b.ct.front)
+        np.testing.assert_array_equal(a.result.theta_p_eff,
+                                      b.result.theta_p_eff)
+        np.testing.assert_array_equal(a.result.theta_s_eff,
+                                      b.result.theta_s_eff)
+        np.testing.assert_array_equal(a.result.sim.cost, b.result.sim.cost)
+
+
+STREAM_CFG = HMOOCConfig(n_c_init=16, n_clusters=4, n_p_pool=48,
+                         n_c_enrich=12, max_bank=12, seed=3)
+
+
+@pytest.mark.parametrize("kind", ["single", "overload"])
+def test_server_on_card_matches_host(cuda_device, kind):
+    """The oracle server under a ServiceTimeModel: the card's timeline and
+    plans equal the host's exactly (the streams are tie-free in float32)."""
+    from repro_torch.serve import (OptimizerServer, ServerConfig,
+                                   ServiceTimeModel)
+    reqs, specs = _stream_case(kind)
+    clock = ServiceTimeModel(flush_points=((1, 0.05), (4, 0.12), (8, 0.2)),
+                             round_s=0.005, cheap_s=0.001)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        srv = OptimizerServer(config=ServerConfig(max_batch=4, clock=clock),
+                              cfg=STREAM_CFG, tenants=specs, device=dev)
+        out[str(dev)] = (srv.serve(reqs), srv.last_run)
+    (host, hs), (card, cs) = out["cpu"], out[str(cuda_device)]
+    _assert_served_equal(card, host)
+    assert (cs.flush_windows, cs.flush_caps, cs.tenant_slots) == \
+        (hs.flush_windows, hs.flush_caps, hs.tenant_slots)
+
+
+def test_fleet_on_card_matches_host(cuda_device, tmp_path):
+    from repro_torch.serve import (CacheStore, OptimizerFleet, ServerConfig,
+                                   ServiceTimeModel)
+    reqs, specs = _stream_case("overload")
+    clock = ServiceTimeModel(flush_points=((1, 0.05), (8, 0.2)),
+                             round_s=0.005, cheap_s=0.001)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        store = CacheStore()
+        fleet = OptimizerFleet(n_workers=2, config=ServerConfig(
+            max_batch=4, clock=clock), cfg=STREAM_CFG, tenants=specs,
+            cache_store=store, device=dev)
+        out[str(dev)] = (fleet.serve(reqs), store)
+    (host, _), (card, store) = out["cpu"], out[str(cuda_device)]
+    _assert_served_equal(card, host)
+    # The card's published caches load and serve on the host.
+    store.save(tmp_path / "caches.pkl")
+    warm = OptimizerFleet(n_workers=1, config=ServerConfig(max_batch=4),
+                          cfg=STREAM_CFG, tenants=specs,
+                          cache_store=CacheStore.load(tmp_path / "caches.pkl"),
+                          publish_on_serve=False, device="cpu")
+    served = warm.serve(reqs)
+    assert warm.workers[0].tuning._results.hits > 0
+    for a in served:
+        if a.status == "served":
+            b = {s.rid: s for s in host}[a.rid]
+            if b.status == "served":
+                np.testing.assert_array_equal(a.result.sim.cost,
+                                              b.result.sim.cost)
