@@ -31,6 +31,16 @@ default model and solver widths:
   the elastic one twice (``scenarios``); ``OptimizerFleet`` at 1, 2 and 4
   workers on one card with affinity and random routing on the overload
   mix, and a ``CacheStore`` round trip (``fleet``);
+* the user-facing entry points on the trained models and the oracle
+  (``examples``): the quickstart, the service demo (48 requests in batches
+  of 16) and the 22 TPC-H queries on the oracle backend, then the TPC-H
+  loop on the trained ``subq`` and ``qs``, each on the card and again on
+  the host; then the cluster autotuner (``cluster``): ``autotune`` for
+  the four ported configurations × the shape cells each supports × the
+  example's five preferences, on the card and on the host, with the
+  H100 figures of ``cluster/costmodel.py``; beside it one bf16 product at
+  qwen2-72b's FFN shape against the cost model's ``TC_EFF``, and
+  ``pareto_mask`` on the card against K1 and ``pareto_mask_np``;
 * dense-LM serving (``lm``): ``glm4-9b`` at full width in bfloat16 with
   random weights from a seed, one prompt-scoring forward of 4 × 2048 tokens
   through the flash-attention kernel's tensor-core body (every launch must
@@ -44,11 +54,15 @@ launched there, if a compile-time stream makes more than 2
 for the DAG filter), or if a runtime batch's rounds make other than one
 ``runtime_pick`` call and one host synchronisation each, or any
 ``pareto_filter`` or ``ws_reduce`` launch.  The streaming phases hold the
-same launch rules inside the server's flushes and fusion rounds, the
+same launch rules inside the server's flushes and fusion rounds (the
+examples and the cluster autotuner too: K1 in each example and at most
+twice a solved query, the runtime pick wherever an example runs AQE), the
 served plans to the port's offline pipeline on the card (within rtol
 1e-4 for ``serve``; exactly for the scenarios' survivors and across fleet
-widths), and two clocked serves of a scenario to one timeline.
-``runtime_pick`` is held to
+widths), and two clocked serves of a scenario to one timeline.  The
+examples' oracle plans, simulated latencies, costs and runtime requests
+and every cluster plan equal the host's exactly; the model-backed TPC-H
+plans are within rtol 1e-4 of the host's.  ``runtime_pick`` is held to
 its plain version on the planted cases of the CPU parity tests and on
 sets past its shared-memory budget, and timed at the batch's largest
 round beside the composed route it replaces (``pareto_masks_fast``,
@@ -75,6 +89,7 @@ script fails before it prints any result.  It imports nothing of JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import io
 import json
@@ -98,6 +113,8 @@ sys.path.insert(0, str(ROOT / "tests"))     # the runtime pick's test cases
 from repro_torch.archs import blocks as arch_blocks  # noqa: E402
 from repro_torch.archs.common import DTYPES  # noqa: E402
 from repro_torch.archs.registry import build_model, get_config  # noqa: E402
+from repro_torch.cluster import costmodel as cluster_costmodel  # noqa: E402
+from repro_torch.cluster.autotune import autotune  # noqa: E402
 from repro_torch.core.models.perf_model import (  # noqa: E402
     ModelConfig, PerfModel, _Net)
 from repro_torch.core.models.training import (  # noqa: E402
@@ -110,6 +127,9 @@ from repro_torch.core.tuning import runtime as runtime_core  # noqa: E402
 from repro_torch.core.tuning.objectives import StageObjectives  # noqa: E402
 from repro_torch.core.tuning.spark_space import (  # noqa: E402
     theta_c_space, theta_p_space, theta_s_space)
+from repro_torch.examples import (  # noqa: E402
+    cluster_autotune as cluster_example, quickstart, serve_tuning,
+    tpch_tuning)
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
@@ -125,6 +145,7 @@ from repro_torch.kernels.pareto_filter.ref import (  # noqa: E402
 from repro_torch.kernels.ws_reduce import ops as ws_ops  # noqa: E402
 from repro_torch.kernels.ws_reduce.ref import (  # noqa: E402
     kept_normalised, runtime_pick_ref, ws_reduce_ref)
+from repro_torch.launch.shapes import SHAPES, cell_applicable  # noqa: E402
 from repro_torch.queryengine.aqe import (  # noqa: E402
     LQPRequest, QSRequest, run_with_aqe)
 from repro_torch.queryengine.simulator import (  # noqa: E402
@@ -158,7 +179,8 @@ KERNELS = [
     {"name": "pareto_filter", "ops": pareto_ops, "counter": "LAUNCHES",
      "source": "src/repro_torch/kernels/pareto_filter/csrc/pareto_filter.cu",
      "replaces": "src/repro/kernels/pareto_filter/kernel.py:54",
-     "paths": ("compile", "trained", "serve", "scenarios", "fleet")},
+     "paths": ("compile", "trained", "serve", "scenarios", "fleet",
+               "examples", "cluster")},
     {"name": "ws_reduce", "ops": ws_ops, "counter": "LAUNCHES",
      "source": "src/repro_torch/kernels/ws_reduce/csrc/ws_reduce.cu",
      "replaces": "src/repro/kernels/ws_reduce/kernel.py:35",
@@ -167,7 +189,8 @@ KERNELS = [
      "counter": "RUNTIME_PICK_LAUNCHES",
      "source": "src/repro_torch/kernels/ws_reduce/csrc/runtime_pick.cu",
      "replaces": "src/repro/kernels/ws_reduce/kernel.py:35",
-     "paths": ("runtime", "trained", "serve", "scenarios", "fleet")},
+     "paths": ("runtime", "trained", "serve", "scenarios", "fleet",
+               "examples")},
     {"name": "fused_solve", "ops": fused_ops, "counter": "LAUNCHES",
      "source": "src/repro_torch/kernels/fused_solve/csrc/fused_solve.cu",
      "replaces": "src/repro/kernels/fused_solve/ops.py:79",
@@ -325,6 +348,14 @@ CALIB_CAPS, CALIB_N, CALIB_PASSES = (1, 2, 8), 16, 1
 FLEET_N, FLEET_WORKERS, FLEET_MAX_BATCH = 96, (1, 2, 4), 8
 FLEET_BUDGET_S, FLEET_LOAD = 1.0, 2.0
 TENANT_PREFS = [(0.9, 0.1), (0.7, 0.3), (0.5, 0.5), (0.2, 0.8), (0.1, 0.9)]
+# The user-facing entry points: model-backed example plans on the card
+# against the same weights on the host (float32 sums in another order);
+# the configurations the cluster phase tunes (the ported families); the
+# rows of the timed bf16 product at qwen2-72b's FFN shape (one train_4k
+# sequence).
+EXAMPLE_MODEL_RTOL = 1e-4
+CLUSTER_ARCHS = ("minicpm-2b", "deepseek-coder-33b", "glm4-9b", "qwen2-72b")
+CLUSTER_MATMUL_TOKENS = 4096
 
 
 def log(msg: str) -> None:
@@ -2631,6 +2662,233 @@ def run_fleet_path(device, models: dict, clock) -> dict:
     return {"launches": launches, "rows": rows, "row": row}
 
 
+# ---------------------------------------------------------------------------
+# Phase 5: the user-facing entry points (examples, cluster autotuner)
+# ---------------------------------------------------------------------------
+
+def quiet(fn, *args, **kwargs):
+    """(fn's result, what it printed): an example prints its walk-through,
+    which the phase logs only the last line of."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args, **kwargs)
+    return out, buf.getvalue()
+
+
+def example_plans(out: dict):
+    """(compile-time results, AQE runs, solved queries) of one example's
+    ``run()``."""
+    if "rows" in out:                                   # tpch_tuning
+        cts = [r["compile_time"] for r in out["rows"]]
+        runs = [x for r in out["rows"] for x in (r["default"], r["tuned"])]
+        return cts, runs, len(cts)
+    if "batches" in out:                                # serve_tuning
+        cts = [r for b in out["batches"] for r in b["results"]]
+        return cts, [], sum(b["stats"].n_solved for b in out["batches"])
+    return ([out["compile_time"]],                      # quickstart
+            [out["default"], out["hmooc3"], out["runtime"]], 1)
+
+
+def compile_results_equal(a, b) -> bool:
+    return a.choice == b.choice and all(
+        np.array_equal(getattr(a, f), getattr(b, f)) for f in (
+            "front", "theta_c", "theta_p_sub", "theta_s_sub", "theta_p0",
+            "theta_s0"))
+
+
+def compile_results_close(a, b, rtol: float) -> bool:
+    return a.front.shape == b.front.shape and all(
+        np.allclose(x, y, rtol=rtol, atol=0.0) for x, y in (
+            (a.front, b.front), (a.theta_c, b.theta_c)))
+
+
+def run_examples_path(device, models: dict) -> dict:
+    """The four examples' ``run()`` on the card, then on the host: the
+    quickstart, the service demo and the 22 TPC-H queries on the oracle
+    backend (plans, simulated latency and cost and runtime requests equal
+    to the host's), then the TPC-H loop on the trained subq and qs models
+    (within EXAMPLE_MODEL_RTOL of the same weights on the host).  Gates:
+    K1 launched in each example, at most twice a solved query; the runtime
+    pick launched wherever the example runs AQE."""
+    t_phase = time.perf_counter()
+    cuda_models = (models["subq"], models["qs"])
+    host_models = tuple(host_copy(m) for m in cuda_models)
+    cases = [  # name, run(device, models), model-backed, runs AQE
+        ("quickstart", lambda d, m: quickstart.run(device=d), False, True),
+        ("serve_tuning", lambda d, m: serve_tuning.run(device=d), False,
+         False),
+        ("tpch_tuning", lambda d, m: tpch_tuning.run(device=d), False,
+         True),
+        ("tpch_tuning --model",
+         lambda d, m: tpch_tuning.run(*m, device=d), True, True)]
+    reset_launches()
+    rows = []
+    for name, run, with_model, aqe in cases:
+        l0 = read_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        card, text = quiet(run, device, cuda_models)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = {k: v - l0[k] for k, v in read_launches().items()}
+        t0 = time.perf_counter()
+        host, _ = quiet(run, "cpu", host_models)
+        host_wall = time.perf_counter() - t0
+        cts, runs, solved = example_plans(card)
+        cts_h, runs_h, solved_h = example_plans(host)
+        if (len(cts), len(runs), solved) != (len(cts_h), len(runs_h),
+                                            solved_h):
+            raise AssertionError(f"{name}: the card and the host solved "
+                                 "different query counts")
+        for a, b in zip(cts, cts_h):
+            ok = (compile_results_close(a, b, EXAMPLE_MODEL_RTOL)
+                  if with_model else compile_results_equal(a, b))
+            if not ok:
+                raise AssertionError(f"{name}: a compile-time plan on the "
+                                     "card differs from the host's")
+        for a, b in zip(runs, runs_h):
+            ok = (results_close(a, b, EXAMPLE_MODEL_RTOL) if with_model
+                  else results_equal(a, b))
+            if not ok or a.requests_sent != b.requests_sent:
+                raise AssertionError(f"{name}: an AQE run on the card "
+                                     "differs from the host's")
+        rel = max([float(np.max(np.abs(a.front - b.front) / np.abs(b.front)))
+                   for a, b in zip(cts, cts_h)]
+                  + [float(np.max(np.abs(a.sim.actual_latency
+                                         - b.sim.actual_latency)
+                                  / b.sim.actual_latency))
+                     for a, b in zip(runs, runs_h)])
+        k1, picks = n["pareto_filter"], n["runtime_pick"]
+        if not 1 <= k1 <= 2 * solved:
+            raise AssertionError(f"{name}: {k1} K1 launches for {solved} "
+                                 "solved queries; at least 1, at most 2 a "
+                                 "query")
+        if aqe and picks < 1:
+            raise AssertionError(f"{name}: the runtime pick was not "
+                                 "launched")
+        st = np.array([r.solve_time for r in cts])
+        verdict = (f"within relative {rel:.3g} (rtol {EXAMPLE_MODEL_RTOL:g})"
+                   " of" if with_model else "equal to")
+        row = {"example": name, "wall_s": wall, "host_wall_s": host_wall,
+               "solved": solved, "mean_solve_s": float(st.mean()),
+               "max_solve_s": float(st.max()), "pareto_launches": k1,
+               "runtime_pick_launches": picks,
+               "requests_sent": sum(r.requests_sent for r in runs),
+               "max_rel_diff_to_host": rel}
+        rows.append(row)
+        log(f"[examples] {json.dumps(row)}")
+        log(f"[examples] {name}: {wall:.3f} s on the card ({host_wall:.3f} "
+            f"s on the host); solve mean {st.mean():.4f} s, max "
+            f"{st.max():.4f} s against the 1-2 s budget; {k1} K1 launches "
+            f"for {solved} solved queries, {picks} runtime picks; "
+            f"{verdict} the host; last line: "
+            f"{text.splitlines()[-1].strip()}")
+    launches = read_launches()
+    require_launches("examples", launches)
+    log(f"[examples] phase: {time.perf_counter() - t_phase:.3f} s")
+    return {"launches": launches, "rows": rows}
+
+
+def plans_equal(a, b) -> bool:
+    return (a.theta_c, a.theta_p, a.theta_s, a.predicted) == \
+        (b.theta_c, b.theta_p, b.theta_s, b.predicted) \
+        and np.array_equal(a.front, b.front)
+
+
+def run_cluster_path(device, k1_inputs) -> dict:
+    """``autotune`` over the ported configurations × the shape cells each
+    supports × the example's weights, on the card and on the host (plans
+    equal), with the H100 figures of ``cluster/costmodel.py``.  Gate: at
+    most 2 K1 launches a solve, and some.  Then two readings beside the
+    cost model: one bf16 product at qwen2-72b's FFN shape against
+    ``TC_EFF``, and ``pareto_mask`` on the card against K1 and
+    ``pareto_mask_np`` on every bank of the compile-time path's largest
+    K1 stack (``k1_inputs``), with its time per call."""
+    t_phase = time.perf_counter()
+    reset_launches()
+    solves, host_s, card_s = 0, 0.0, 0.0
+    for arch in CLUSTER_ARCHS:
+        for shape in SHAPES:
+            if not cell_applicable(get_config(arch), shape):
+                continue
+            for w in cluster_example.WEIGHTS:
+                l0 = pareto_ops.LAUNCHES
+                t0 = time.perf_counter()
+                plan = autotune(arch, shape, weights=w, device=device)
+                card_s += time.perf_counter() - t0
+                k1 = pareto_ops.LAUNCHES - l0
+                t0 = time.perf_counter()
+                host = autotune(arch, shape, weights=w, device="cpu")
+                host_s += time.perf_counter() - t0
+                if k1 > 2:
+                    raise AssertionError(f"{arch}×{shape}: {k1} K1 "
+                                         "launches in one solve; at most 2")
+                if not plans_equal(plan, host):
+                    raise AssertionError(f"{arch}×{shape} w={w}: the plan "
+                                         "on the card differs from the "
+                                         "host's")
+                solves += 1
+                log(f"[cluster] w(lat,cost)=({w[0]:.2f},{w[1]:.2f}) → "
+                    f"{plan.summary()}; {k1} K1 launches")
+    launches = read_launches()
+    require_launches("cluster", launches)
+    tc = measure_tc_eff(device)
+    mask_ms = check_pareto_mask(*k1_inputs)
+    row = {"solves": solves, "card_s": card_s, "host_s": host_s,
+           "pareto_launches": launches["pareto_filter"], **tc,
+           "pareto_mask_ms": mask_ms,
+           "phase_s": time.perf_counter() - t_phase}
+    log(f"[cluster] {json.dumps(row)}")
+    log(f"[cluster] {solves} plans equal to the host's; {card_s:.3f} s of "
+        f"solves on the card ({card_s / solves:.4f} s a plan), {host_s:.3f} "
+        f"s on the host; {launches['pareto_filter']} K1 launches; phase "
+        f"{row['phase_s']:.3f} s")
+    return {"launches": launches, "row": row}
+
+
+def measure_tc_eff(device) -> dict:
+    """One bf16 ``torch.matmul`` of CLUSTER_MATMUL_TOKENS rows at
+    qwen2-72b's FFN shape, after a warm-up: achieved over peak, beside the
+    cost model's ``TC_EFF``."""
+    cfg = get_config("qwen2-72b")
+    T, d, f = CLUSTER_MATMUL_TOKENS, cfg.d_model, cfg.d_ff
+    g = torch.Generator(device=device).manual_seed(0)
+    a = torch.randn(T, d, device=device, dtype=torch.bfloat16, generator=g)
+    b = torch.randn(d, f, device=device, dtype=torch.bfloat16, generator=g)
+    ms = time_cuda(lambda: torch.matmul(a, b), iters=20, warm=5)
+    rate = 2.0 * T * d * f / (ms * 1e-3)
+    eff = rate / BF16_OPS_PER_S
+    log(f"[cluster] bf16 matmul ({T}, {d}) x ({d}, {f}), qwen2-72b's FFN: "
+        f"{ms:.4f} ms, {rate / 1e12:.1f} TFLOP/s = {eff:.3f} of the "
+        f"{BF16_OPS_PER_S / 1e12:.0f} TFLOP/s peak; the cost model's "
+        f"TC_EFF {cluster_costmodel.TC_EFF} (card {card_line()})")
+    del a, b
+    return {"matmul_ms": ms, "matmul_tflops": rate / 1e12,
+            "tc_eff_measured": eff, "tc_eff_model": cluster_costmodel.TC_EFF}
+
+
+def check_pareto_mask(F: torch.Tensor, valid: torch.Tensor) -> float:
+    """``pareto_mask`` on the card, bank by bank of an (S, n, k) stack,
+    equal to K1's masks of the stack and to ``pareto_mask_np``; returns
+    milliseconds per call on one bank."""
+    k1 = pareto_pkg.pareto_filter_segments(F, valid).cpu().numpy()
+    got = torch.stack([pareto_core.pareto_mask(F[s], valid[s])
+                       for s in range(F.shape[0])]).cpu().numpy()
+    F_h, v_h = F.double().cpu().numpy(), valid.cpu().numpy()
+    want = np.stack([pareto_core.pareto_mask_np(F_h[s], v_h[s])
+                     for s in range(F.shape[0])])
+    if not (np.array_equal(got, k1) and np.array_equal(got, want)):
+        raise AssertionError("pareto_mask on the card differs from K1 or "
+                             "pareto_mask_np")
+    ms = time_cuda(lambda: pareto_core.pareto_mask(F[0], valid[0]),
+                   iters=200)
+    log(f"[cluster] pareto_mask on the card equal to K1 and pareto_mask_np "
+        f"on {F.shape[0]} banks of {tuple(F.shape[1:])} (the compile-time "
+        f"path's largest K1 stack, {int(want.sum())} rows kept); "
+        f"{ms:.6f} ms a call on one bank")
+    return ms
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2686,6 +2944,8 @@ def main() -> int:
         f"{time.perf_counter() - t0:.3f} s")
     scenarios_path = run_scenarios_path(device, train_path["models"], clock)
     fleet_path = run_fleet_path(device, train_path["models"], clock)
+    examples_path = run_examples_path(device, train_path["models"])
+    cluster_path = run_cluster_path(device, compile_path["k1_inputs"])
     lm_path = run_lm_path(device)
     torch.cuda.empty_cache()
     check_lm_flash_against_plain(device)
@@ -2699,6 +2959,8 @@ def main() -> int:
              "serve": serve_path["launches"],
              "scenarios": scenarios_path["launches"],
              "fleet": fleet_path["launches"],
+             "examples": examples_path["launches"],
+             "cluster": cluster_path["launches"],
              "lm": lm_path["launches"]}
     kernels = []
     entries["flash_attention"]["lm_launches_by_body"] = \

@@ -3,8 +3,10 @@
 All objective arrays are *minimization* problems of shape ``(n, k)``.
 Padded / invalid entries are handled through explicit validity masks.
 
-Two implementations of dominance filtering are provided:
+Three implementations of dominance filtering are provided:
 
+* :func:`pareto_mask` — chunked O(n² k) tensor function, O(n · chunk)
+  memory, computed on the tensor's own device in its own dtype.
 * :func:`pareto_mask_np` — plain numpy in float64, host-side.
 * ``repro_torch.kernels.pareto_filter`` — the CUDA kernel with the same
   semantics, comparing in float32 (imported lazily in
@@ -27,11 +29,13 @@ import torch
 from ...device import resolve_device
 
 __all__ = [
+    "pareto_mask",
     "pareto_mask_np",
     "pareto_mask_fast",
     "pareto_masks_fast",
     "kung_2d_np",
     "filter_dominated_np",
+    "compact_bank",
     "hypervolume_2d",
     "hypervolume",
 ]
@@ -51,6 +55,68 @@ def _default_kernel_min_n(device: torch.device) -> int:
     return int(os.environ.get(
         "REPRO_PARETO_KERNEL_MIN_N",
         "0" if device.type == "cuda" else str(1 << 30)))
+
+
+# ---------------------------------------------------------------------------
+# Tensor implementations (on the tensor's device)
+# ---------------------------------------------------------------------------
+
+def _dominated_by_block(Fj: torch.Tensor, F: torch.Tensor,
+                        vj: torch.Tensor) -> torch.Tensor:
+    """(n,) bool: row i of ``F`` is dominated by some valid row of the
+    block ``Fj`` (c, k), that is F[j] <= F[i] in all objectives and < in
+    one."""
+    le = (Fj[:, None, :] <= F[None, :, :]).all(-1)   # (c, n)
+    lt = (Fj[:, None, :] < F[None, :, :]).any(-1)    # (c, n)
+    return ((le & lt) & vj[:, None]).any(0)
+
+
+def pareto_mask(F: torch.Tensor, valid: Optional[torch.Tensor] = None,
+                chunk: int = 256) -> torch.Tensor:
+    """Boolean mask of Pareto-optimal (non-dominated) rows of ``F``.
+
+    Args:
+      F: (n, k) objective values, minimization.  Rows holding a non-finite
+        value are never optimal.
+      valid: optional (n,) bool; invalid rows are neither optimal nor
+        dominate.
+      chunk: dominators are taken ``chunk`` rows at a time, so memory is
+        O(n * chunk).
+
+    Computed where ``F`` lies, in its dtype, with no host synchronisation.
+    """
+    F = torch.as_tensor(F)
+    ok = torch.isfinite(F).all(-1)
+    if valid is not None:
+        ok = ok & torch.as_tensor(valid, dtype=torch.bool, device=F.device)
+    dom = torch.zeros(F.shape[0], dtype=torch.bool, device=F.device)
+    for lo in range(0, F.shape[0], chunk):
+        dom |= _dominated_by_block(F[lo:lo + chunk], F, ok[lo:lo + chunk])
+    return ok & ~dom
+
+
+def compact_bank(F: torch.Tensor, mask: torch.Tensor, p: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Gather up to ``p`` masked rows of ``F`` to the front, padding with
+    +inf.
+
+    Returns (Fout (p, k), valid (p,), idx (p,)) where idx are source row
+    indices (arbitrary for padded slots): the masked rows first, in index
+    order, then the others.  If more than ``p`` rows are masked the
+    surplus is dropped in index order; with ``p`` above n every output
+    holds n rows, as slicing does.
+    """
+    F = torch.as_tensor(F)
+    mask = torch.as_tensor(mask, dtype=torch.bool, device=F.device)
+    # A stable sort of a bool tensor is not supported everywhere; its
+    # uint8 view sorts the same.
+    order = torch.argsort((~mask).to(torch.uint8), stable=True)
+    idx = order[:p]
+    take_valid = mask[idx]
+    rows = F[idx]
+    Fout = torch.where(take_valid[:, None], rows,
+                       torch.full_like(rows, float("inf")))
+    return Fout, take_valid, idx
 
 
 # ---------------------------------------------------------------------------

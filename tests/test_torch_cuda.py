@@ -7,7 +7,9 @@ machine that has only PyTorch:
 
     python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 """
+import contextlib
 import dataclasses
+import io
 import warnings
 
 import numpy as np
@@ -18,9 +20,12 @@ torch = pytest.importorskip("torch")
 from repro_torch.archs.registry import build_model, get_smoke_config
 from repro_torch.core.moo.hmooc import HMOOCConfig
 from repro_torch.core.tuning import runtime as runtime_core
+from repro_torch.cluster.autotune import autotune
 from repro_torch.core.moo.pareto import (_f32_tie_hazard,
                                          _f32_tie_hazard_tensor,
+                                         compact_bank, pareto_mask,
                                          pareto_mask_np, pareto_masks_fast)
+from repro_torch.examples import quickstart
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.fused_solve import ops as fused_ops
@@ -893,3 +898,91 @@ def test_fleet_on_card_matches_host(cuda_device, tmp_path):
             if b.status == "served":
                 np.testing.assert_array_equal(a.result.sim.cost,
                                               b.result.sim.cost)
+
+
+def _mask_case(n, seed):
+    """float32 objectives with +inf rows, a NaN and exact duplicates."""
+    rng = np.random.default_rng(seed)
+    F = rng.random((n, 2)).astype(np.float32)
+    F[rng.choice(n, n // 4, replace=False)] = \
+        F[rng.choice(n, n // 4, replace=False)]
+    F[rng.random(n) < 0.1, 0] = np.inf
+    F[0, 1] = np.nan
+    return F, rng.random(n) > 0.2
+
+
+@pytest.mark.parametrize("chunk", [64, 256])
+@pytest.mark.parametrize("n", [5, 256, 1000])
+def test_pareto_mask_on_card_matches_k1_and_numpy(cuda_device, n, chunk):
+    F, valid = _mask_case(n, seed=n + chunk)
+    Ft = torch.from_numpy(F).to(cuda_device)
+    vt = torch.from_numpy(valid).to(cuda_device)
+    got = pareto_mask(Ft, vt, chunk=chunk)
+    assert got.device.type == "cuda"
+    want = pareto_mask_np(F, valid)
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+    # K1 takes validity as given; its callers fold finiteness into it.
+    vk = torch.from_numpy(valid & np.isfinite(F).all(-1)).to(cuda_device)
+    np.testing.assert_array_equal(
+        got.cpu().numpy(), pareto_ops.pareto_filter(Ft, vk).cpu().numpy())
+    inf = torch.full((n, 2), float("inf"), device=cuda_device)
+    assert not pareto_mask(inf, chunk=chunk).any()
+
+
+@pytest.mark.parametrize("p", [3, 40, 1000])
+def test_compact_bank_on_card_matches_host(cuda_device, p):
+    F, valid = _mask_case(300, seed=p)
+    mask = pareto_mask_np(F, valid)
+    got = compact_bank(torch.from_numpy(F).to(cuda_device),
+                       torch.from_numpy(mask).to(cuda_device), p)
+    want = compact_bank(torch.from_numpy(F), torch.from_numpy(mask), p)
+    for g, w in zip(got, want):
+        assert g.device.type == "cuda"
+        np.testing.assert_array_equal(g.cpu().numpy(), w.numpy())
+    c = min(int(mask.sum()), p)
+    np.testing.assert_array_equal(want[2][:c].numpy(),
+                                  np.nonzero(mask)[0][:c])
+
+
+def test_autotune_card_equals_host(cuda_device):
+    """One launch plan on the card (K1 on the banks phase and the DAG
+    filter) and on the host's float64 numpy route: the same plan."""
+    before = pareto_ops.LAUNCHES
+    card = autotune("qwen2-72b", "train_4k", weights=(0.5, 0.5),
+                    device=cuda_device)
+    assert 1 <= pareto_ops.LAUNCHES - before <= 2
+    host = autotune("qwen2-72b", "train_4k", weights=(0.5, 0.5),
+                    device="cpu")
+    assert (card.theta_c, card.theta_p, card.theta_s, card.predicted) == \
+        (host.theta_c, host.theta_p, host.theta_s, host.predicted)
+    np.testing.assert_array_equal(card.front, host.front)
+
+
+def test_quickstart_card_equals_host(cuda_device):
+    """The quickstart example on the card (K1 for its solve, the runtime
+    pick for its AQE requests) prints and plans as on the host."""
+    before = (pareto_ops.LAUNCHES, ws_ops.RUNTIME_PICK_LAUNCHES)
+    outs, texts = [], []
+    for dev in (cuda_device, "cpu"):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            outs.append(quickstart.run(device=dev))
+        texts.append([ln for ln in buf.getvalue().splitlines()
+                      if "solved in" not in ln])
+        if dev is cuda_device:
+            assert 1 <= pareto_ops.LAUNCHES - before[0] <= 2
+            assert ws_ops.RUNTIME_PICK_LAUNCHES > before[1]
+    card, host = outs
+    assert texts[0] == texts[1]
+    a, b = card["compile_time"], host["compile_time"]
+    for f in ("front", "theta_c", "theta_p0", "theta_s0", "theta_p_sub",
+              "theta_s_sub"):
+        np.testing.assert_array_equal(getattr(a, f), getattr(b, f))
+    for key in ("default", "hmooc3", "runtime"):
+        x, y = card[key], host[key]
+        assert x.requests_sent == y.requests_sent
+        for f in ("theta_p_eff", "theta_s_eff", "final_join"):
+            np.testing.assert_array_equal(getattr(x, f), getattr(y, f))
+        np.testing.assert_array_equal(x.sim.actual_latency,
+                                      y.sim.actual_latency)
+        np.testing.assert_array_equal(x.sim.cost, y.sim.cost)

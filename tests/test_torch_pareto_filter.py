@@ -7,6 +7,11 @@ both sides compare in float32, and the ``pareto_mask_fast`` cases use
 float32-representable, tie-free inputs (or the tie-hazard straddle, which
 must route to float64 numpy on both sides).  The CUDA kernel itself is
 held to the plain version in ``test_torch_cuda.py``, which needs a card.
+
+The tensor primitives ``pareto_mask`` and ``compact_bank`` are held
+exactly to the reference's jnp functions and to ``pareto_mask_np``, with
+invalid, non-finite and duplicate rows and dominator blocks smaller than
+n.
 """
 import numpy as np
 import pytest
@@ -284,3 +289,62 @@ def test_masks_fast_routes_per_bank(monkeypatch, restore_threshold):
     assert port_pareto.pareto_masks_fast([], device="cpu") == []
     with pytest.raises(ValueError, match="validity masks"):
         port_pareto.pareto_masks_fast(banks, [None], device="cpu")
+
+
+def _mask_case(n, k, seed):
+    """float32 objectives with +inf, -inf and NaN rows, and exact
+    duplicates of other rows (duplicates are mutually non-dominated)."""
+    rng = np.random.default_rng(seed)
+    F = rng.random((n, k)).astype(np.float32)
+    if n > 4:
+        F[rng.choice(n, n // 4, replace=False)] = \
+            F[rng.choice(n, n // 4, replace=False)]
+        F[rng.random(n) < 0.1, 0] = np.inf
+        F[1, -1] = np.nan
+        F[2, 0] = -np.inf
+    return F, rng.random(n) > 0.2
+
+
+@pytest.mark.parametrize("with_valid", [False, True])
+@pytest.mark.parametrize("k", [2, 3])
+@pytest.mark.parametrize("chunk", [7, 256])
+@pytest.mark.parametrize("n", [2, 17, 40, 300])
+def test_pareto_mask_matches_reference(n, chunk, k, with_valid):
+    F, valid = _mask_case(n, k, seed=n + 7 * k)
+    v = valid if with_valid else None
+    want = np.asarray(ref_pareto.pareto_mask(
+        jnp.asarray(F), None if v is None else jnp.asarray(v), chunk=chunk))
+    got = port_pareto.pareto_mask(
+        torch.from_numpy(F), None if v is None else torch.from_numpy(v),
+        chunk=chunk)
+    assert got.dtype == torch.bool and got.shape == (n,)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(got.numpy(), ref_pareto.pareto_mask_np(F, v))
+    if n > 4:
+        assert got.numpy().any()
+
+
+def test_pareto_mask_all_infeasible_and_empty():
+    F = np.full((9, 2), np.inf, np.float32)
+    got = port_pareto.pareto_mask(torch.from_numpy(F))
+    assert not got.any()
+    assert not np.asarray(ref_pareto.pareto_mask(jnp.asarray(F))).any()
+    empty = port_pareto.pareto_mask(torch.zeros((0, 2)))
+    assert empty.shape == (0,) and empty.dtype == torch.bool
+
+
+@pytest.mark.parametrize("where", ["below", "at", "above", "past_n"])
+def test_compact_bank_matches_reference(where):
+    F, valid = _mask_case(40, 2, seed=3)
+    mask = ref_pareto.pareto_mask_np(F, valid)
+    c = int(mask.sum())
+    p = {"below": c - 1, "at": c, "above": c + 5, "past_n": 47}[where]
+    want = [np.asarray(a) for a in ref_pareto.compact_bank(
+        jnp.asarray(F), jnp.asarray(mask), p)]
+    got = [t.numpy() for t in port_pareto.compact_bank(
+        torch.from_numpy(F), torch.from_numpy(mask), p)]
+    assert got[0].shape == want[0].shape == (min(p, 40), 2)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    np.testing.assert_array_equal(got[2][:min(c, p)],
+                                  np.nonzero(mask)[0][:p])
