@@ -45,7 +45,17 @@ default model and solver widths:
   random weights from a seed, one prompt-scoring forward of 4 × 2048 tokens
   through the flash-attention kernel's tensor-core body (every launch must
   take it), then generation through the port's ``make_serve_fns``
-  (prefill into a KV cache, 31 greedy decode steps).
+  (prefill into a KV cache, 31 greedy decode steps);
+* dense-LM training (``lm_train``): ``python -m repro_torch.launch.train``
+  for 20 smoke steps, the reference's loss-falls test on the smoke
+  glm4-9b, 5 float32 steps with gradient accumulation on the card held to
+  the host's, the refusal of ``use_flash`` (the flash kernel has no
+  backward pass), ``minicpm-2b`` at full width (2.72 B parameters from a
+  seed, bfloat16 with float32 moments and per-layer remat, 8 x 512 tokens
+  a step with 4 microbatches: step time, tokens/s against the 6NT bound,
+  peak memory, host syncs a step), and the ``train_lm`` example at its
+  ``--m100`` scale with its checkpoint restored bit-equal into a fresh
+  model and optimizer state.  No kernel runs on this path.
 
 Each path runs with every kernel's launch count set to 0 just before it
 and read just after; the script fails if a kernel of a path was not
@@ -112,7 +122,8 @@ sys.path.insert(0, str(ROOT / "tests"))     # the runtime pick's test cases
 
 from repro_torch.archs import blocks as arch_blocks  # noqa: E402
 from repro_torch.archs.common import DTYPES  # noqa: E402
-from repro_torch.archs.registry import build_model, get_config  # noqa: E402
+from repro_torch.archs.registry import (  # noqa: E402
+    build_model, get_config, get_smoke_config)
 from repro_torch.cluster import costmodel as cluster_costmodel  # noqa: E402
 from repro_torch.cluster.autotune import autotune  # noqa: E402
 from repro_torch.core.models.perf_model import (  # noqa: E402
@@ -127,9 +138,11 @@ from repro_torch.core.tuning import runtime as runtime_core  # noqa: E402
 from repro_torch.core.tuning.objectives import StageObjectives  # noqa: E402
 from repro_torch.core.tuning.spark_space import (  # noqa: E402
     theta_c_space, theta_p_space, theta_s_space)
+from repro_torch.data.pipeline import data_iterator  # noqa: E402
+from repro_torch.data.pipeline import make_batch as make_lm_batch  # noqa: E402
 from repro_torch.examples import (  # noqa: E402
     cluster_autotune as cluster_example, quickstart, serve_tuning,
-    tpch_tuning)
+    tpch_tuning, train_lm)
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
@@ -145,6 +158,7 @@ from repro_torch.kernels.pareto_filter.ref import (  # noqa: E402
 from repro_torch.kernels.ws_reduce import ops as ws_ops  # noqa: E402
 from repro_torch.kernels.ws_reduce.ref import (  # noqa: E402
     kept_normalised, runtime_pick_ref, ws_reduce_ref)
+from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.launch.shapes import SHAPES, cell_applicable  # noqa: E402
 from repro_torch.queryengine.aqe import (  # noqa: E402
     LQPRequest, QSRequest, run_with_aqe)
@@ -162,7 +176,10 @@ from repro_torch.serve import (  # noqa: E402
 from repro_torch.serve import runtime as runtime_mod  # noqa: E402
 from repro_torch.serve.cache import query_fingerprint  # noqa: E402
 from repro_torch.serve import service as service_mod  # noqa: E402
+from repro_torch.train.optimizer import OptConfig  # noqa: E402
 from repro_torch.train.serve import make_serve_fns  # noqa: E402
+from repro_torch.train.train_loop import (  # noqa: E402
+    make_train_step as make_lm_train_step, train_loop)
 from _runtime_pick_cases import (  # noqa: E402
     CASES as PICK_CASES, PICK_THRESHOLDS, budget_round, case_weights)
 
@@ -356,6 +373,28 @@ TENANT_PREFS = [(0.9, 0.1), (0.7, 0.3), (0.5, 0.5), (0.2, 0.8), (0.1, 0.9)]
 EXAMPLE_MODEL_RTOL = 1e-4
 CLUSTER_ARCHS = ("minicpm-2b", "deepseek-coder-33b", "glm4-9b", "qwen2-72b")
 CLUSTER_MATMUL_TOKENS = 4096
+# Dense-LM training.  The smoke run is the reference's
+# test_train_loss_decreases (glm4-9b's smoke configuration in bfloat16,
+# batch 4 x 32, lr 3e-3, 3 warm-up steps, 30 steps; the last loss below
+# 0.9 x the first).  The card is held to the host on the float32 smoke
+# model at test_torch_train_step.py's trajectory tolerance.  Full width:
+# minicpm-2b at its published widths and depth, a global batch of 8 x 512
+# with its train_accum (4), 2 untimed and 3 timed steps.  The checkpoint
+# round trip runs the train_lm example at its --m100 scale for 4 steps.
+LM_TRAIN_SMOKE = dict(arch="glm4-9b", batch=4, seq=32, lr=3e-3, warmup=3,
+                      steps=30)
+LM_TRAIN_DROP = 0.9
+LM_TRAIN_CHECK_STEPS, LM_TRAIN_CHECK_ACCUM = 5, 2
+LM_TRAIN_RTOL = 1e-4
+LM_TRAIN_ARCH, LM_TRAIN_BATCH, LM_TRAIN_SEQ = "minicpm-2b", 8, 512
+LM_TRAIN_WARM, LM_TRAIN_TIMED = 2, 3
+# The full-width run's peak rate (10 warm-up steps of 100).  From random
+# weights AdamW's first steps move every weight by about the rate, and at
+# 2.7 B parameters 3e-4 overshoots: losses 12.08 -> 14.06 -> 19.92 in the
+# first steps (PERF.md, section 6); at 1e-5 they fall, 12.08 -> 8.19 in 8.
+LM_TRAIN_FULL_LR = 1e-5
+LM_TRAIN_TOP = 12             # kernels and host ops listed from a traced step
+LM_TRAIN_CKPT_STEPS = 4
 
 
 def log(msg: str) -> None:
@@ -513,14 +552,31 @@ def device_busy_ms(fn) -> float:
     """Milliseconds the card spent in kernels (summed over every kernel of a
     torch.profiler trace) during one call of ``fn``; set against the call's
     untraced wall time it gives the card's idle share."""
+    return device_breakdown(fn)["busy_ms"]
+
+
+def device_breakdown(fn, top: int = 0) -> dict:
+    """One call of ``fn`` under torch.profiler: the card's busy ms (every
+    kernel), its kernel launches, and the ``top`` kernels by device time
+    and host ops by self host time, each as (name, ms, count)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA) / 1e3
+    events = prof.key_averages()
+    card = [e for e in events if e.device_type == DeviceType.CUDA]
+    host = [e for e in events if e.device_type == DeviceType.CPU]
+
+    def rows(evs, key):
+        return [(e.key[:90], getattr(e, key) / 1e3, e.count)
+                for e in sorted(evs, key=lambda e: -getattr(e, key))[:top]]
+
+    return {"busy_ms": sum(e.self_device_time_total for e in card) / 1e3,
+            "kernel_launches": sum(e.count for e in card),
+            "top_kernels": rows(card, "self_device_time_total"),
+            "top_host_ops": rows(host, "self_cpu_time_total")}
 
 
 def fmt_us(us) -> str:
@@ -2889,6 +2945,284 @@ def check_pareto_mask(F: torch.Tensor, valid: torch.Tensor) -> float:
     return ms
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: dense-LM training (data pipeline, train step, checkpoints)
+# ---------------------------------------------------------------------------
+
+def lm_train_smoke(device) -> dict:
+    """The intent of the reference's test_train_loss_decreases on the card:
+    the bfloat16 smoke glm4-9b, LM_TRAIN_SMOKE's batch, rate and steps;
+    the last loss below LM_TRAIN_DROP x the first, every loss finite."""
+    s = LM_TRAIN_SMOKE
+    cfg = get_smoke_config(s["arch"])
+    model = build_model(cfg, device,
+                        torch.Generator(device=device).manual_seed(0))
+    it = data_iterator(cfg, global_batch=s["batch"], seq_len=s["seq"],
+                       seed=0)
+    opt = OptConfig(lr=s["lr"], total_steps=s["steps"],
+                    warmup_steps=s["warmup"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = train_loop(model, it, steps=s["steps"], opt_cfg=opt, log_every=1)
+    wall = time.perf_counter() - t0
+    losses = [h["loss"] for h in out["history"]]
+    if len(losses) != s["steps"] or not np.isfinite(losses).all():
+        raise AssertionError(f"smoke training losses {losses}")
+    if not losses[-1] < LM_TRAIN_DROP * losses[0]:
+        raise AssertionError(f"smoke training loss {losses[0]:.4f} -> "
+                             f"{losses[-1]:.4f}: not below {LM_TRAIN_DROP}"
+                             " x the first")
+    log(f"[lm_train] smoke {cfg.name} ({cfg.dtype}), {s['steps']} steps of "
+        f"{s['batch']} x {s['seq']} tokens at lr {s['lr']}: loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f} "
+        f"({losses[-1] / losses[0]:.3f} of the first) in {wall:.3f} s")
+    return {"first_loss": losses[0], "last_loss": losses[-1],
+            "steps": s["steps"], "wall_s": wall}
+
+
+def check_lm_train_against_host(device, arch: str = "glm4-9b") -> float:
+    """LM_TRAIN_CHECK_STEPS steps with accum LM_TRAIN_CHECK_ACCUM of the
+    float32 smoke model from one start on the card and on the host: every
+    loss, learning rate and gradient norm within LM_TRAIN_RTOL."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_smoke_config(arch, dtype="float32")
+    host = build_model(cfg, "cpu", torch.Generator().manual_seed(4))
+    card = build_model(cfg, device,
+                       torch.Generator(device=device).manual_seed(0))
+    card.load_state_dict(host.state_dict())
+    it = data_iterator(cfg, global_batch=8, seq_len=32, seed=1)
+    batches = [next(it) for _ in range(LM_TRAIN_CHECK_STEPS)]
+    opt = OptConfig(lr=1e-3, total_steps=100, warmup_steps=3)
+    runs = []
+    for model in (card, host):
+        fns = make_lm_train_step(model, opt, accum=LM_TRAIN_CHECK_ACCUM)
+        params, state = fns.init()
+        rows = []
+        for b in batches:
+            params, state, m = fns.step(params, state, b)
+            rows.append([m[k] for k in ("loss", "lr", "grad_norm")])
+        runs.append(np.array([[float(x) for x in r] for r in rows]))
+    got, want = runs
+    err = float(np.max(np.abs(got - want) / np.abs(want)))
+    if not err <= LM_TRAIN_RTOL:
+        raise AssertionError(f"{arch} training steps on the card differ from "
+                             f"the host's by relative {err:.3g}: card {got}, "
+                             f"host {want}")
+    log(f"[check] {LM_TRAIN_CHECK_STEPS} {arch} float32 training steps "
+        f"(accum {LM_TRAIN_CHECK_ACCUM}) on the card: losses, learning rates"
+        f" and gradient norms within relative {err:.3g} of the host's (rtol "
+        f"{LM_TRAIN_RTOL})")
+    return err
+
+
+def check_lm_train_refuses_flash(device) -> None:
+    """use_flash on the training path raises: the train step refuses the
+    configuration, and the kernel's wrapper refuses inputs that need a
+    gradient; neither launches the kernel."""
+    cfg = get_smoke_config("glm4-9b", use_flash=True)
+    model = build_model(cfg, device,
+                        torch.Generator(device=device).manual_seed(0))
+    batch = make_lm_batch(cfg, global_batch=2, seq_len=16, step=0)
+    before = flash_ops.LAUNCHES
+    fns = make_lm_train_step(model, OptConfig())
+    refused = []
+    try:
+        fns.step(*fns.init(), batch)
+    except RuntimeError as e:
+        refused.append(str(e))
+    try:
+        model.loss(batch)
+    except RuntimeError as e:
+        refused.append(str(e))
+    if len(refused) != 2 or not all("no backward pass" in r
+                                    for r in refused):
+        raise AssertionError(f"use_flash trained: {refused}")
+    if flash_ops.LAUNCHES != before:
+        raise AssertionError("a refused training step launched the flash "
+                             "kernel")
+    log("[check] use_flash on the training path raises in the train step "
+        "and in the kernel's wrapper, with no launch")
+
+
+def lm_train_full_width(device) -> dict:
+    """LM_TRAIN_ARCH at full width (bfloat16, float32 moments, remat
+    "block"), weights from a seed on the card; LM_TRAIN_WARM untimed steps
+    (the second counts host syncs), LM_TRAIN_TIMED timed steps of the
+    global batch with the configuration's accumulation, one more traced
+    for the card's busy time.  Losses must be finite, the last below the
+    first."""
+    cfg = get_config(LM_TRAIN_ARCH)
+    batch, seq, accum = LM_TRAIN_BATCH, LM_TRAIN_SEQ, cfg.train_accum
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = build_model(cfg, device,
+                        torch.Generator(device=device).manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    build_s = time.perf_counter() - t0
+    it = data_iterator(cfg, global_batch=batch, seq_len=seq, seed=0)
+    n_steps = LM_TRAIN_WARM + LM_TRAIN_TIMED + 1
+    batches = [next(it) for _ in range(n_steps)]
+    opt = OptConfig(lr=LM_TRAIN_FULL_LR, total_steps=100, warmup_steps=10,
+                    moment_dtype=cfg.moment_dtype)
+    torch.cuda.reset_peak_memory_stats()
+    fns = make_lm_train_step(model, opt, accum=accum)
+    params, state = fns.init()
+    losses = []
+    syncs = None
+    for i in range(LM_TRAIN_WARM):
+        def one():
+            return fns.step(params, state, batches[i])
+        if i == LM_TRAIN_WARM - 1:
+            (params, state, m), syncs = count_syncs(one)
+        else:
+            params, state, m = one()
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(LM_TRAIN_WARM, LM_TRAIN_WARM + LM_TRAIN_TIMED):
+        params, state, m = fns.step(params, state, batches[i])
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / LM_TRAIN_TIMED
+    prof = device_breakdown(lambda: losses.append(
+        fns.step(params, state, batches[-1])[2]["loss"]), top=LM_TRAIN_TOP)
+    busy = prof["busy_ms"]
+    peak = torch.cuda.max_memory_allocated()
+    total = torch.cuda.get_device_properties(device).total_memory
+    losses = torch.stack(losses).tolist()
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"full-width training losses {losses}: not all "
+                             "finite, or the last not below the first")
+    tokens = batch * seq
+    bound_s = 6 * n_params * tokens / BF16_OPS_PER_S
+    state_bytes = sum(t.numel() * t.element_size()
+                      for d in (params, state["m"], state["v"])
+                      for t in d.values())
+    row = {"arch": cfg.name, "n_params": n_params, "dtype": cfg.dtype,
+           "moment_dtype": cfg.moment_dtype, "remat": cfg.remat,
+           "global_batch": batch, "seq": seq, "accum": accum,
+           "build_s": build_s, "step_s": step_s,
+           "tokens_per_s": tokens / step_s,
+           "bound_6NT_s": bound_s, "share_of_6NT_bound": bound_s / step_s,
+           "step_device_busy_ms": busy,
+           "step_kernel_launches": prof["kernel_launches"],
+           "idle_share": 1 - busy / (step_s * 1e3),
+           "max_memory_bytes": peak, "device_memory_bytes": total,
+           "state_bytes": state_bytes,
+           "host_syncs_per_step": syncs, "losses": losses}
+    log(f"[lm_train] {json.dumps(row)}")
+    log(f"[lm_train] {cfg.name} full width ({n_params} parameters, "
+        f"{cfg.dtype}, {cfg.moment_dtype} moments, remat {cfg.remat}): "
+        f"{batch} x {seq} tokens a step, accum {accum}: {step_s:.4f} s a "
+        f"step ({tokens / step_s:.1f} tokens/s) over {LM_TRAIN_TIMED} timed "
+        f"steps; 6NT bound {bound_s:.4f} s = {bound_s / step_s:.3f} of the "
+        f"step; card busy {busy:.1f} ms of a step (profiler against "
+        f"untraced wall time); peak memory {peak} of {total} bytes "
+        f"(parameters and moments {state_bytes}); {syncs} host syncs in a "
+        f"step (sync debug mode); losses {[round(x, 4) for x in losses]}")
+    log(f"[lm_train] one traced step: {prof['kernel_launches']} kernel "
+        f"launches; top kernels by device ms {prof['top_kernels']}; top host "
+        f"ops by self ms {prof['top_host_ops']}")
+    return row
+
+
+def bits(t: torch.Tensor) -> torch.Tensor:
+    """A tensor as integers of its width: bit-equal means equal here."""
+    t = t.detach()
+    return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+
+
+def lm_train_checkpoint(device) -> dict:
+    """The train_lm example at its --m100 scale on the card (pipeline,
+    train loop, checkpoint, restore), then its checkpoint restored into a
+    fresh model and optimizer state: every tensor bit-equal to the live
+    state, and the next step's loss from the restored state equal to the
+    live state's (gradient norms within LM_TRAIN_RTOL: the embedding's
+    backward adds with atomics)."""
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as text:
+        out = train_lm.run(steps=LM_TRAIN_CKPT_STEPS, batch=8, seq=128,
+                           m100=True, device=device)
+    run_s = time.perf_counter() - t0
+    live, restored = ({"params": out["params"], "opt": out["opt_state"]},
+                      out["restored"])
+    if out["restored_step"] != LM_TRAIN_CKPT_STEPS:
+        raise AssertionError(f"restored step {out['restored_step']}")
+    cfg = out["model"].cfg
+    fresh = build_model(cfg, device,
+                        torch.Generator(device=device).manual_seed(1))
+    fresh.load_state_dict(restored["params"])
+    n = 0
+    for group in ("params", "m", "v"):
+        a = live["params"] if group == "params" else live["opt"][group]
+        b = dict(fresh.named_parameters()) if group == "params" \
+            else restored["opt"][group]
+        for name, t in a.items():
+            if t.dtype != b[name].dtype or \
+                    not torch.equal(bits(t), bits(b[name])):
+                raise AssertionError(f"{group} {name} changed in the "
+                                     "checkpoint round trip")
+            n += 1
+    if int(restored["opt"]["step"]) != int(live["opt"]["step"]):
+        raise AssertionError("the optimizer step changed in the round trip")
+    it = data_iterator(cfg, global_batch=8, seq_len=128,
+                       start_step=LM_TRAIN_CKPT_STEPS)
+    nxt = next(it)
+    opt = OptConfig(lr=3e-3, total_steps=2 * LM_TRAIN_CKPT_STEPS)
+    a_fns = make_lm_train_step(out["model"], opt)
+    b_fns = make_lm_train_step(fresh, opt)
+    _, _, ma = a_fns.step(live["params"], live["opt"], nxt)
+    _, _, mb = b_fns.step(dict(fresh.named_parameters()), restored["opt"],
+                          nxt)
+    la, lb = float(ma["loss"]), float(mb["loss"])
+    ga, gb = float(ma["grad_norm"]), float(mb["grad_norm"])
+    if la != lb or not abs(ga - gb) <= LM_TRAIN_RTOL * ga:
+        raise AssertionError(f"the next step from the restored state: loss "
+                             f"{lb!r} against {la!r}, gradient norm {gb!r} "
+                             f"against {ga!r}")
+    n_params = out["n_params"]
+    log(f"[lm_train] checkpoint round trip at the --m100 scale ({n_params} "
+        f"parameters): the example's {LM_TRAIN_CKPT_STEPS} steps, save and "
+        f"restore in {run_s:.3f} s; {n + 1} tensors bit-equal after a fresh "
+        f"model and optimizer state load them; next-step loss {lb!r} equal, "
+        f"gradient norm within {abs(ga - gb) / ga:.3g}; example output "
+        f"{text.getvalue().splitlines()[-1]!r}")
+    return {"n_params": n_params, "tensors": n + 1, "next_loss": lb,
+            "run_s": run_s}
+
+
+def run_lm_train_path(device) -> dict:
+    """Dense-LM training on the card: the training CLI (20 smoke steps),
+    the smoke model's loss falling, the card against the host, the refusal
+    of use_flash, minicpm-2b at full width, and the train_lm example with
+    its checkpoint round trip.  No kernel of the port runs on this path (the flash kernel
+    has no backward pass), so every launch count must stay 0."""
+    t_phase = time.perf_counter()
+    reset_launches()
+    with contextlib.redirect_stdout(io.StringIO()) as text:
+        cli = train_cli.main(["--arch", "minicpm-2b", "--steps", "20",
+                              "--batch", "8", "--seq", "128"])
+    lines = text.getvalue().strip().splitlines()
+    log(f"[lm_train] python -m repro_torch.launch.train --steps 20 on the "
+        f"card: {lines[0]}; {lines[-1]}")
+    if not np.isfinite([h["loss"] for h in cli["history"]]).all():
+        raise AssertionError("the training CLI gave a non-finite loss")
+    smoke = lm_train_smoke(device)
+    host_err = check_lm_train_against_host(device)
+    check_lm_train_refuses_flash(device)
+    full = lm_train_full_width(device)
+    torch.cuda.empty_cache()
+    ckpt = lm_train_checkpoint(device)
+    launches = read_launches()
+    if any(launches.values()):
+        raise AssertionError(f"LM training launched a kernel: {launches}")
+    log(f"[lm_train] phase: {time.perf_counter() - t_phase:.3f} s; launches "
+        f"{launches}")
+    return {"launches": launches, "smoke": smoke, "host_err": host_err,
+            "full": full, "checkpoint": ckpt}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2951,6 +3285,8 @@ def main() -> int:
     check_lm_flash_against_plain(device)
     torch.cuda.empty_cache()
     check_lm_against_host(device)
+    torch.cuda.empty_cache()
+    lm_train_path = run_lm_train_path(device)
     paths = {"compile": compile_path["launches"],
              "runtime": runtime_path["launches"],
              "hmooc2": hmooc2_path["launches"],
@@ -2961,7 +3297,8 @@ def main() -> int:
              "fleet": fleet_path["launches"],
              "examples": examples_path["launches"],
              "cluster": cluster_path["launches"],
-             "lm": lm_path["launches"]}
+             "lm": lm_path["launches"],
+             "lm_train": lm_train_path["launches"]}
     kernels = []
     entries["flash_attention"]["lm_launches_by_body"] = \
         lm_path["row"]["flash_launches_scoring_by_body"]

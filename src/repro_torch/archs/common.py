@@ -2,11 +2,12 @@
 
 The counterpart of the reference's ``archs/common.py`` for one card.
 :class:`ArchConfig` is carried over field for field, so a configuration
-means the same thing on both sides; its sharding, rematerialisation and
-accumulation knobs (``remat``, ``act_shard_model``, ``act_shard``,
-``train_accum``, ``pure_dp``, ``moment_dtype``) are kept but have no effect
-here: the port runs on one card without a mesh and does not train yet.
-The reference's GSPMD sharding rules (``param_specs``, ``batch_axes``) are
+means the same thing on both sides.  On one card ``dtype``, ``use_flash``,
+``window`` and ``remat`` act (``remat="block"`` when the model trains);
+``moment_dtype`` and ``train_accum`` are read by the training entry points.
+The sharding knobs (``act_shard_model``, ``act_shard``, ``pure_dp``) are
+kept but have no effect: the port runs on one card without a mesh, and
+the reference's GSPMD sharding rules (``param_specs``, ``batch_axes``) are
 not ported.
 """
 from __future__ import annotations
@@ -62,10 +63,10 @@ class ArchConfig:
     rope_theta: float = 1e4
     tie_embeddings: bool = False
     norm_eps: float = 1e-5
-    # Execution knobs.  On one card only dtype, use_flash and window act.
+    # Execution knobs.  On one card the sharding knobs do not act.
     dtype: str = "bfloat16"
     moment_dtype: str = "float32"
-    remat: str = "block"         # none | block
+    remat: str = "block"         # none | block (recompute layers in backward)
     use_flash: bool = False      # hand-written flash-attention kernel
     window: int = 0              # sliding-window attention (0 = full)
     act_shard_model: bool = True

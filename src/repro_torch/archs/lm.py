@@ -5,23 +5,32 @@ Where the reference scans over parameters stacked on a leading L axis, the
 port keeps one module per layer in an ``nn.ModuleList`` and loops over
 them.  Parameter names and layouts are the reference's (weights are
 (d_in, d_out) and a layer computes ``x @ W``), so :func:`params_from_reference`
-maps a reference parameter tree onto :meth:`LM.state_dict` leaf by leaf.
+maps a reference parameter tree onto :meth:`LM.state_dict` leaf by leaf
+and :func:`params_to_reference` maps it back.
 
-Parameters do not require gradients: this slice serves, and training (and
-a backward pass for the flash-attention kernel) comes with a later one.
+Parameters are built frozen, so serving builds no autograd graph; the
+train step (``train/train_loop.py``) turns gradients on for the model it
+trains.  With gradients on, ``cfg.remat == "block"`` recomputes each
+layer in the backward pass (``torch.utils.checkpoint``), as the reference
+wraps each scanned layer in ``jax.checkpoint``.  The flash-attention
+kernel has no backward pass (nor has the reference's), so a model with
+``cfg.use_flash`` does not train.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .blocks import apply_attention, apply_mlp, init_attention, init_mlp
 from .common import ArchConfig, DTYPES, init_dense, rmsnorm
 
-__all__ = ["LM", "params_from_reference"]
+__all__ = ["LM", "params_from_reference", "params_to_reference",
+           "reference_key"]
 
 Cache = List[Dict[str, Any]]
 
@@ -107,10 +116,20 @@ class LM(nn.Module):
             positions = torch.as_tensor(positions, device=self.device)
         new_caches = []
         for i, layer in enumerate(self.layers):
-            x, c = layer(self.cfg, x, positions,
-                         None if caches is None else caches[i])
+            if caches is None and self._remat(x):
+                x, c = checkpoint(layer, self.cfg, x, positions, None,
+                                  use_reentrant=False)
+            else:
+                x, c = layer(self.cfg, x, positions,
+                             None if caches is None else caches[i])
             new_caches.append(c)
         return x, new_caches
+
+    def _remat(self, x: torch.Tensor) -> bool:
+        """Recompute a layer in the backward pass: ``remat="block"``, and
+        an autograd graph is being built through ``x``."""
+        return (self.cfg.remat == "block" and torch.is_grad_enabled()
+                and x.requires_grad)
 
     def forward(self, tokens, caches: Optional[Cache] = None,
                 positions: Optional[torch.Tensor] = None,
@@ -130,7 +149,7 @@ class LM(nn.Module):
 
     def loss(self, batch: Mapping[str, Any]) -> torch.Tensor:
         """Mean next-token cross entropy over labels ≥ 0 (float32)."""
-        labels = torch.as_tensor(batch["labels"], device=self.device)
+        labels = torch.as_tensor(batch["labels"], device=self.device).long()
         x, _ = self._run_layers(batch["tokens"], None, None)
         x = rmsnorm(x, self.norm_f, self.cfg.norm_eps)
         B, S = labels.shape
@@ -146,6 +165,10 @@ class LM(nn.Module):
         while (B * S // n_chunks) * self.cfg.vocab > CE_CHUNK_THRESHOLD \
                 and S % (2 * n_chunks) == 0:
             n_chunks *= 2
+        if n_chunks > 1 and self._remat(x):
+            # As the reference: each chunk's logits are recomputed in the
+            # backward pass, or the chunking would save no memory.
+            ce = functools.partial(checkpoint, ce, use_reentrant=False)
         tot = torch.zeros((), dtype=torch.float32, device=self.device)
         cnt = torch.zeros((), dtype=torch.float32, device=self.device)
         step = S // n_chunks
@@ -167,11 +190,17 @@ class LM(nn.Module):
                  "len": 0} for _ in self.layers]
 
 
-def _tensor(a: Any) -> torch.Tensor:
-    """A CPU tensor holding a copy of ``a``.  bfloat16 numpy arrays (the
-    ``ml_dtypes`` type JAX hands out) are reinterpreted through uint16,
-    since ``torch.from_numpy`` does not take them."""
+def _tensor(a: Any, layer: Optional[int] = None) -> torch.Tensor:
+    """A CPU tensor holding a copy of ``a`` (or of ``a[layer]``).  ``a`` is
+    a tensor or an array; bfloat16 numpy arrays (the ``ml_dtypes`` type JAX
+    hands out) are reinterpreted through uint16, since ``torch.from_numpy``
+    does not take them."""
+    if isinstance(a, torch.Tensor):
+        a = a.detach() if layer is None else a.detach()[layer]
+        return a.to("cpu", copy=True)
     a = np.asarray(a)
+    if layer is not None:
+        a = a[layer]
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
     return torch.from_numpy(np.array(a, copy=True))
@@ -181,8 +210,9 @@ def params_from_reference(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """The port's :class:`LM` state dict from a reference parameter tree.
 
     ``tree`` is what the reference's ``build_lm(cfg).init`` returns, as
-    nested dicts of numpy arrays; ``tree["layers"]`` holds leaves stacked on
-    a leading L axis, which become ``layers.<i>.<path>``.  Dtypes are kept.
+    nested dicts of numpy arrays (or tensors); ``tree["layers"]`` holds
+    leaves stacked on a leading L axis, which become ``layers.<i>.<path>``.
+    Dtypes are kept.
     """
     out: Dict[str, torch.Tensor] = {}
 
@@ -191,11 +221,47 @@ def params_from_reference(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
             if isinstance(v, Mapping):
                 walk(v, f"{prefix}{k}.", layer)
             else:
-                out[f"{prefix}{k}"] = _tensor(v if layer is None else
-                                              np.asarray(v)[layer])
+                out[f"{prefix}{k}"] = _tensor(v, layer)
 
     walk({k: v for k, v in tree.items() if k != "layers"}, "", None)
-    n_layers = len(np.asarray(tree["layers"]["ln_attn"]))
-    for i in range(n_layers):
+    for i in range(len(tree["layers"]["ln_attn"])):
         walk(tree["layers"], f"layers.{i}.", i)
+    return out
+
+
+def reference_key(name: str) -> Tuple[Tuple[str, ...], Optional[int]]:
+    """A state-dict name's path in the reference's parameter tree and its
+    layer: ``layers.3.attn.wq`` → (("layers", "attn", "wq"), 3); names
+    outside the layers have no layer."""
+    parts = name.split(".")
+    if parts[0] == "layers":
+        return ("layers",) + tuple(parts[2:]), int(parts[1])
+    return tuple(parts), None
+
+
+def params_to_reference(state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """The reference's parameter tree from a state dict of :class:`LM`, the
+    inverse of :func:`params_from_reference`: nested dicts of CPU tensors,
+    each per-layer leaf stacked on a leading L axis.  Dtypes are kept
+    (bfloat16 tensors stay tensors; JAX takes them through a uint16 view).
+    """
+    stacks: Dict[Tuple[str, ...], Dict[int, torch.Tensor]] = {}
+    out: Dict[str, Any] = {}
+    for name, t in state.items():
+        path, layer = reference_key(name)
+        if layer is None:
+            node = out
+            for k in path[:-1]:
+                node = node.setdefault(k, {})
+            node[path[-1]] = t.detach().to("cpu", copy=True)
+        else:
+            stacks.setdefault(path, {})[layer] = t
+    for path, by_layer in stacks.items():
+        if sorted(by_layer) != list(range(len(by_layer))):
+            raise ValueError(f"{'/'.join(path)}: layers {sorted(by_layer)}")
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = torch.stack([by_layer[i].detach().cpu()
+                                      for i in range(len(by_layer))])
     return out

@@ -17,7 +17,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.archs.registry import build_model, get_smoke_config
+from repro_torch.archs.registry import (build_model, get_config,
+                                        get_smoke_config)
+from repro_torch.data.pipeline import data_iterator as lm_data_iterator
+from repro_torch.data.pipeline import make_batch as lm_make_batch
 from repro_torch.core.moo.hmooc import HMOOCConfig
 from repro_torch.core.tuning import runtime as runtime_core
 from repro_torch.cluster.autotune import autotune
@@ -45,6 +48,9 @@ from repro_torch.queryengine.trace import collect_traces
 from repro_torch.queryengine.workloads import (default_workload,
                                                make_benchmark, serving_stream)
 from repro_torch.serve import RuntimeSession, TuningService
+from repro_torch.train.checkpoint import restore_checkpoint, save_checkpoint
+from repro_torch.train.optimizer import OptConfig as LMOptConfig
+from repro_torch.train.train_loop import make_train_step as make_lm_train_step
 
 from _runtime_pick_cases import (CASES, PICK_THRESHOLDS, budget_round,
                                  case_weights)
@@ -986,3 +992,119 @@ def test_quickstart_card_equals_host(cuda_device):
         np.testing.assert_array_equal(x.sim.actual_latency,
                                       y.sim.actual_latency)
         np.testing.assert_array_equal(x.sim.cost, y.sim.cost)
+
+
+# Dense-LM training.  LM_TRAJECTORY_RTOL is test_torch_train_step.py's
+# TRAJECTORY_RTOL, which holds the host's steps to the reference's; the
+# card's embedding backward adds with atomics, so its gradients are not
+# bit-reproducible and card against host needs a tolerance.
+LM_TRAJECTORY_RTOL = 1e-4
+
+
+def _lm_steps(model, batches, accum):
+    fns = make_lm_train_step(model, LMOptConfig(lr=1e-3, total_steps=100,
+                                                warmup_steps=3), accum=accum)
+    params, state = fns.init()
+    rows = []
+    for b in batches:
+        params, state, m = fns.step(params, state, b)
+        rows.append([float(m[k]) for k in ("loss", "lr", "grad_norm")])
+    return np.array(rows), params, state
+
+
+@pytest.mark.parametrize("arch", ["glm4-9b", "minicpm-2b"])
+def test_lm_train_steps_on_card_match_host(cuda_device, arch):
+    """5 float32 smoke steps with accum 2 from one start: losses, learning
+    rates and gradient norms within LM_TRAJECTORY_RTOL of the host's, and
+    no flash-attention launch."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_smoke_config(arch, dtype="float32")
+    host = build_model(cfg, "cpu")
+    card = build_model(cfg, cuda_device)
+    card.load_state_dict(host.state_dict())
+    it = lm_data_iterator(cfg, global_batch=8, seq_len=32, seed=1)
+    batches = [next(it) for _ in range(5)]
+    before = flash_ops.LAUNCHES
+    got, params, _ = _lm_steps(card, batches, 2)
+    assert flash_ops.LAUNCHES == before
+    assert all(t.device == card.device for t in params.values())
+    want, _, _ = _lm_steps(host, batches, 2)
+    np.testing.assert_allclose(got, want, rtol=LM_TRAJECTORY_RTOL)
+
+
+def test_lm_train_full_width_minicpm_step_memory(cuda_device):
+    """One step of minicpm-2b at full width (bfloat16, float32 moments,
+    remat "block", 8 x 512 tokens in 4 microbatches): a finite loss, no
+    host sync, and a peak within the state's bytes plus 12 GB: parameters,
+    gradients, the float32 accumulation buffers and both moments are 16
+    bytes a parameter (43.5 GB); a layer's activations under remat, the
+    loss's float32 logits and the optimizer's float32 temporaries of the
+    largest leaf fit in the rest."""
+    cfg = get_config("minicpm-2b")
+    model = build_model(cfg, cuda_device)
+    n = sum(p.numel() for p in model.parameters())
+    batch = lm_make_batch(cfg, global_batch=8, seq_len=512, step=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fns = make_lm_train_step(model, LMOptConfig(moment_dtype=cfg.moment_dtype),
+                             accum=cfg.train_accum)
+    params, state = fns.init()
+    fns.step(params, state, batch)                      # warm-up
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            _, _, m = fns.step(params, state, batch)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = sum("called a synchronizing" in str(w.message) for w in caught)
+    assert np.isfinite(float(m["loss"]))
+    assert syncs == 0
+    peak = torch.cuda.max_memory_allocated()
+    assert peak <= 16 * n + 12e9, (peak, n)
+
+
+def test_lm_checkpoint_round_trip_on_card(cuda_device, tmp_path):
+    """Save after 2 steps, restore into a fresh model and optimizer state on
+    the card: every tensor bit-equal, and the next step's loss equal."""
+    cfg = get_smoke_config("minicpm-2b")
+    model = build_model(cfg, cuda_device)
+    it = lm_data_iterator(cfg, global_batch=4, seq_len=32)
+    fns = make_lm_train_step(model, LMOptConfig())
+    params, state = fns.init()
+    for _ in range(2):
+        params, state, _ = fns.step(params, state, next(it))
+    save_checkpoint(str(tmp_path), 2, params, state)
+    fresh = build_model(cfg, cuda_device,
+                        torch.Generator(device=cuda_device).manual_seed(5))
+    fresh_fns = make_lm_train_step(fresh, LMOptConfig())
+    like = dict(zip(("params", "opt"), fresh_fns.init()))
+    restored, at = restore_checkpoint(str(tmp_path), like)
+    assert at == 2
+    fresh.load_state_dict(restored["params"])
+    for group, live, back in (("params", params, dict(fresh.named_parameters())),
+                              ("m", state["m"], restored["opt"]["m"]),
+                              ("v", state["v"], restored["opt"]["v"])):
+        for n, t in live.items():
+            assert back[n].device == t.device
+            assert torch.equal(back[n].detach(), t.detach()), (group, n)
+    nxt = next(it)
+    _, _, a = fns.step(params, state, nxt)
+    _, _, b = fresh_fns.step(dict(fresh.named_parameters()),
+                             restored["opt"], nxt)
+    assert float(a["loss"]) == float(b["loss"])
+
+
+def test_lm_train_refuses_flash_on_card(cuda_device):
+    """The train step refuses ``use_flash``, and the kernel's wrapper
+    refuses inputs that need a gradient; no kernel launch."""
+    model = build_model(get_smoke_config("glm4-9b", use_flash=True),
+                        cuda_device)
+    batch = lm_make_batch(model.cfg, global_batch=2, seq_len=16, step=0)
+    fns = make_lm_train_step(model, LMOptConfig())
+    before = flash_ops.LAUNCHES
+    with pytest.raises(RuntimeError, match="no backward pass"):
+        fns.step(*fns.init(), batch)
+    with pytest.raises(RuntimeError, match="no backward pass"):
+        model.loss(batch)
+    assert flash_ops.LAUNCHES == before
