@@ -46,6 +46,17 @@ default model and solver widths:
   through the flash-attention kernel's tensor-core body (every launch must
   take it), then generation through the port's ``make_serve_fns``
   (prefill into a KV cache, 31 greedy decode steps);
+* MoE serving (``moe``): ``moonshot-v1-16b-a3b`` at full width and depth
+  (28.1 B parameters, 64 experts top-6) served as ``lm`` is, with the
+  routing of every layer recorded (token-slots dropped by capacity, top-k
+  sets on which the flash and plain routes differ), two scoring forwards
+  bit-equal, the flash route's logits within ``MOE_LOGIT_GATE`` times
+  SDPA's spread of the plain route's (next tokens reported: on random
+  weights routing flips cascade and every attention route ends with
+  other tokens), at 4 float32 layers within ``LM_F32_ATOL`` of the plain
+  route with its routing replayed and with the same next tokens; one
+  layer's dispatch share, and the smoke MoE model on the card against
+  the host (forward, prefill and decode, a train step);
 * dense-LM training (``lm_train``): ``python -m repro_torch.launch.train``
   for 20 smoke steps, the reference's loss-falls test on the smoke
   glm4-9b, 5 float32 steps with gradient accumulation on the card held to
@@ -88,7 +99,8 @@ the spread of the LM's bfloat16 logits over three prompt seeds for both
 flash-attention bodies and SDPA.  It checks the results of every path and the card's
 answers against the host's on small inputs (for the LM: the flash route
 against the plain route at 4 layers, and the card against the host at 2
-layers, both at full width in float32).  Every phase raises on failure,
+layers, both at full width in float32; for MoE the flash route against
+the plain route at 4 layers of moonshot-v1-16b-a3b in float32).  Every phase raises on failure,
 so the script exits 0 only when all of them passed.  The last line of
 standard output is one JSON object, ``{"ok": true, "device": {...}}``; the
 line before it lists each kernel with its launches, its error against the
@@ -121,7 +133,7 @@ sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT / "tests"))     # the runtime pick's test cases
 
 from repro_torch.archs import blocks as arch_blocks  # noqa: E402
-from repro_torch.archs.common import DTYPES  # noqa: E402
+from repro_torch.archs.common import DTYPES, rmsnorm  # noqa: E402
 from repro_torch.archs.registry import (  # noqa: E402
     build_model, get_config, get_smoke_config)
 from repro_torch.cluster import costmodel as cluster_costmodel  # noqa: E402
@@ -216,7 +228,7 @@ KERNELS = [
      "source": "src/repro_torch/kernels/flash_attention/csrc/"
                "flash_attention_wgmma.cu",
      "replaces": "src/repro/kernels/flash_attention/kernel.py:86",
-     "paths": ("lm",)},
+     "paths": ("lm", "moe")},
 ]
 MAIN_PATH_SHAPE = (256, 2)          # one Algorithm 1 bank: 256-row pool, k=2
 # (n, k, layout): "uniform" rows are mostly dominated within the first tile;
@@ -272,10 +284,14 @@ LM_BATCH, LM_PROMPT, LM_GEN, LM_CAPACITY = 4, 2048, 32, 2080
 # flash_attention (B, Hq, Hkv, Sq, Skv, D, causal, dtype): the reference
 # kernel tests' six float32 shapes (CUDA-core body) and their bfloat16
 # case, the LM path's shape (glm4-9b at 4 × 2048 tokens), which is timed
-# for the table, a minicpm-2b-shaped case (36 heads of 64) and the LM shape
-# in float16 (all tensor-core body).
+# for the table, a minicpm-2b-shaped case (36 heads of 64), the LM shape
+# in float16 and the MoE path's shape (moonshot-v1-16b-a3b at 4 × 2048
+# tokens, 16 heads of 128, Hq = Hkv), also timed for the table (all
+# tensor-core body).
 FLASH_LM_SHAPE = (LM_BATCH, 32, 2, LM_PROMPT, LM_PROMPT, 128, True,
                   torch.bfloat16)
+FLASH_MOE_SHAPE = (LM_BATCH, 16, 16, LM_PROMPT, LM_PROMPT, 128, True,
+                   torch.bfloat16)
 FLASH_SHAPES = [(1, 4, 4, 128, 128, 64, True, torch.float32),
                 (2, 8, 2, 256, 256, 64, True, torch.float32),
                 (1, 4, 1, 100, 100, 128, True, torch.float32),
@@ -285,7 +301,8 @@ FLASH_SHAPES = [(1, 4, 4, 128, 128, 64, True, torch.float32),
                 (1, 4, 4, 128, 128, 128, True, torch.bfloat16),
                 FLASH_LM_SHAPE,
                 (1, 36, 36, 2048, 2048, 64, True, torch.bfloat16),
-                FLASH_LM_SHAPE[:-1] + (torch.float16,)]
+                FLASH_LM_SHAPE[:-1] + (torch.float16,),
+                FLASH_MOE_SHAPE]
 # The profiler's name of each flash-attention body's kernel.
 FLASH_KERNEL_NAMES = {"wgmma": "flash_attention_wgmma_kernel",
                       "simt": "flash_attention_kernel"}
@@ -314,8 +331,40 @@ LM_F32_ATOL = 5e-4
 # steps (0.0898 and 0.0957 measured, PERF.md).  2^-3 is four steps.
 LM_BF16_LOGIT_ATOL = 0.125
 # Prompt seeds of the logit-spread measurement (flash bodies and SDPA
-# against the plain route on the same glm4-9b weights).
+# against the plain route on the same weights).
 LM_SPREAD_SEEDS = (0, 1, 2)
+# Kernels and host ops listed from a traced scoring forward and decode step.
+LM_TOP = 8
+# The MoE path: moonshot-v1-16b-a3b at full width and depth, bf16, served
+# as the LM path is (4 × 2048 prompts, 31 decode steps, 2080 slots).  A
+# bf16 rounding can flip one of a token's 6 experts near a routing tie,
+# which moves its hidden state by far more than a dense layer's rounding;
+# attention spreads the change to later tokens, where it flips more
+# experts.  On these random weights the flips cascade through the 48
+# layers, and rounding alone grows through them too: any two attention
+# routes (K4's bodies, SDPA, the plain einsum route) end with unrelated
+# bf16 logits and next tokens (PERF.md, section 6).  So at full depth K4's
+# bf16 scoring logits may differ from the plain route's by at most
+# MOE_LOGIT_GATE times the largest difference that SDPA in K4's place
+# gives over LM_SPREAD_SEEDS (the factor 2 absorbs a heavy-tailed spread:
+# one more prompt set beats the largest of three with probability 1/4 for
+# two equally good routes); next tokens, and the same with K4's routing
+# replayed into the other routes, are reported, not gated.  The routes'
+# agreement is held where it is decided: K4 at this shape against its
+# plain version (FLASH_SCALED_TOL), and MOE_CHECK_LAYERS layers of the
+# same configuration in float32, K4 against the plain route with K4's
+# routing replayed into it (so no rounding flips an expert), within
+# LM_F32_ATOL and with the same next tokens.
+MOE_ARCH = "moonshot-v1-16b-a3b"
+MOE_LOGIT_GATE = 2.0
+MOE_CHECK_LAYERS = 4
+# Depths at which the routes' drift is measured on the same weights.
+MOE_DRIFT_DEPTHS = (1, 2, 4, 8, 16)
+# The smoke MoE model in float32 on the card against the host: forward,
+# prefill and MOE_HOST_DECODE decode steps, one train step's loss, within
+# MOE_HOST_ATOL (float32 sums in other orders; no routing tie at 1e-7).
+MOE_HOST_DECODE = 4
+MOE_HOST_ATOL = 1e-4
 # Performance-model training at the reference's fast TPC-H budget
 # (benchmarks/common.py's FAST: 3 variants of each template, 32
 # configurations a query; 1,500 steps of 512 rows for subq and qs, 500 of
@@ -371,7 +420,8 @@ TENANT_PREFS = [(0.9, 0.1), (0.7, 0.3), (0.5, 0.5), (0.2, 0.8), (0.1, 0.9)]
 # rows of the timed bf16 product at qwen2-72b's FFN shape (one train_4k
 # sequence).
 EXAMPLE_MODEL_RTOL = 1e-4
-CLUSTER_ARCHS = ("minicpm-2b", "deepseek-coder-33b", "glm4-9b", "qwen2-72b")
+CLUSTER_ARCHS = ("minicpm-2b", "deepseek-coder-33b", "glm4-9b", "qwen2-72b",
+                 "dbrx-132b", "moonshot-v1-16b-a3b")
 CLUSTER_MATMUL_TOKENS = 4096
 # Dense-LM training.  The smoke run is the reference's
 # test_train_loss_decreases (glm4-9b's smoke configuration in bfloat16,
@@ -1243,7 +1293,7 @@ def check_flash_attention(device) -> dict:
     within FLASH_ATOL (and FLASH_SCALED_TOL for 16-bit), then timed: the
     wrapper per call (events), the kernel alone (profiler), the plain
     version, SDPA, and the bound."""
-    worst, entry = 0.0, None
+    worst, entry, moe_entry = 0.0, None, None
     for i, (B, Hq, Hkv, Sq, Skv, D, causal, dtype) in enumerate(FLASH_SHAPES):
         q, k, v = flash_case(B, Hq, Hkv, Sq, Skv, D, dtype, 400 + i, device)
         got = flash_ops.flash_attention(q, k, v, causal=causal)
@@ -1285,16 +1335,19 @@ def check_flash_attention(device) -> dict:
             "call (events), "
             f"kernel alone {fmt_us(dev)} (profiler), plain {plain:.6f} ms, "
             f"library SDPA {lib:.6f} ms, bound {bound:.9f} ms ({by})")
+        timed = {"ms": ms, "plain_ms": plain, "bound_ms": bound,
+                 "bound_by": by, "library_ms": lib, "kernel_us": dev,
+                 "body": body, "shape": [B, Hq, Hkv, Sq, Skv, D]}
         if FLASH_SHAPES[i] == FLASH_LM_SHAPE:
-            entry = {"ms": ms, "plain_ms": plain, "bound_ms": bound,
-                     "bound_by": by, "library_ms": lib, "kernel_us": dev,
-                     "body": body, "shape": [B, Hq, Hkv, Sq, Skv, D]}
+            entry = timed
+        elif FLASH_SHAPES[i] == FLASH_MOE_SHAPE:
+            moe_entry = timed
         del q, k, v, got, want, want32
     log(f"[kernels] flash_attention == plain version on {len(FLASH_SHAPES)} "
         f"cases (float32 within {FLASH_ATOL[torch.float32]}, bfloat16 and "
         f"float16 within {FLASH_ATOL[torch.bfloat16]} and within a + r|want| "
         f"of the float32 output: {FLASH_SCALED_TOL})")
-    return {"max_abs_err": worst, **entry}
+    return {"max_abs_err": worst, **entry, "moe_shape": moe_entry}
 
 
 # ---------------------------------------------------------------------------
@@ -1718,14 +1771,15 @@ def generate(model, tokens: torch.Tensor, capacity: int, steps: int):
 
 
 def lm_logit_spread(model, cfg, device, batch: int = LM_BATCH,
-                    prompt: int = LM_PROMPT) -> dict:
+                    prompt: int = LM_PROMPT, tag: str = "[lm]") -> dict:
     """The bf16 scoring logits' largest difference from the plain route
     (the cacheless forward with float32 attention, chunked) on the same
     weights, for each of LM_SPREAD_SEEDS' prompts and three attention
     routes in the flash route's place: the tensor-core body, the CUDA-core
     body (on float32 copies of q, k, v, rounded back to bf16: its 16-bit
     D <= 128 builds were removed, so the body cannot be forced on bf16
-    inputs), and SDPA.  Measured, not gated: it says whether the tensor-core
+    inputs), and SDPA; and the share of requests whose next token each
+    route picks as the plain route does.  It says whether the tensor-core
     body lies outside the spread that bf16 layers summing in other orders
     give."""
     def simt(q, k, v, causal=True):
@@ -1760,18 +1814,23 @@ def lm_logit_spread(model, cfg, device, batch: int = LM_BATCH,
                         raise AssertionError(f"non-finite {name} logits")
                     row[name] = float((got.float() - plain.float()).abs()
                                       .max())
+                    row[f"{name}_agree"] = float(
+                        (got[:, -1].argmax(-1) == plain[:, -1].argmax(-1))
+                        .float().mean())
             rows.append(row)
-            log(f"[lm] logit spread, prompt seed {seed}: bf16 logits minus "
+            log(f"{tag} logit spread, prompt seed {seed}: bf16 logits minus "
                 f"the plain route's, max |d|: tensor-core body "
                 f"{row['wgmma']:.6g}, CUDA-core body {row['simt']:.6g}, SDPA "
-                f"{row['sdpa']:.6g} (|logit| up to {row['max_abs_logit']:.4g})")
+                f"{row['sdpa']:.6g} (|logit| up to {row['max_abs_logit']:.4g});"
+                f" next token as the plain route's: {row['wgmma_agree']:.2f}, "
+                f"{row['simt_agree']:.2f}, {row['sdpa_agree']:.2f}")
     finally:
         arch_blocks.flash_attention = orig
         model.cfg = cfg
     others = [r[n] for r in rows for n in ("simt", "sdpa")]
     lo, hi = min(others), max(others)
     inside = all(r["wgmma"] <= hi for r in rows)
-    log(f"[lm] logit spread over {len(rows)} prompt seeds: CUDA-core body "
+    log(f"{tag} logit spread over {len(rows)} prompt seeds: CUDA-core body "
         f"and SDPA {lo:.6g}-{hi:.6g}; tensor-core body "
         f"{min(r['wgmma'] for r in rows):.6g}-"
         f"{max(r['wgmma'] for r in rows):.6g}, "
@@ -1779,23 +1838,31 @@ def lm_logit_spread(model, cfg, device, batch: int = LM_BATCH,
     return {"rows": rows, "others_range": [lo, hi], "wgmma_inside": inside}
 
 
-def run_lm_path(device, cfg=None, batch: int = LM_BATCH,
-                prompt: int = LM_PROMPT, gen: int = LM_GEN,
-                capacity: int = LM_CAPACITY) -> dict:
-    """Dense-LM serving at full width: one prompt-scoring forward with the
-    flash route (a kernel launch per layer), then generation through the
-    cache (no kernel launch, as in the reference).  Both run after an
-    untimed warm-up at 128 tokens."""
-    cfg = cfg or get_config(LM_ARCH, use_flash=True)
+def serve_lm(device, cfg, path: str, batch: int = LM_BATCH,
+             prompt: int = LM_PROMPT, gen: int = LM_GEN,
+             capacity: int = LM_CAPACITY) -> dict:
+    """Serve ``cfg`` on the card as a user would: weights drawn from a
+    seed, an untimed warm-up at 128 tokens, then, with the launch counts
+    at 0, one prompt-scoring forward with the flash route (a launch per
+    layer, all on the body ``cfg.dtype`` and the head width call for) and
+    generation through the cache (no launch, as in the reference).  Then a
+    traced scoring forward and decode step give the card's busy time and
+    top kernels.  Checks every launch rule, finite logits and tokens in
+    range; returns the model, its prompts, the scoring and prefill logits
+    and the measured row.  ``path`` names the path in the logs and in
+    KERNELS."""
+    tag = f"[{path}]"
     t0 = time.perf_counter()
     model = build_model(cfg, device,
                         torch.Generator(device=device).manual_seed(0))
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
-    log(f"[lm] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-        f"{cfg.n_heads}/{cfg.n_kv} heads of {cfg.head_dim}, d_ff {cfg.d_ff}, "
-        f"vocab {cfg.vocab}, {cfg.dtype}, {n_params} parameters drawn on "
-        f"the card in {time.perf_counter() - t0:.2f} s")
+    log(f"{tag} {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv} heads of {cfg.head_dim}, d_ff {cfg.d_ff}"
+        + (f", {cfg.n_experts} experts top-{cfg.top_k}"
+           if cfg.family == "moe" else "")
+        + f", vocab {cfg.vocab}, {cfg.dtype}, {n_params} parameters drawn "
+        f"on the card in {time.perf_counter() - t0:.2f} s")
     tokens = lm_prompts(cfg.vocab, batch, prompt, device)
     with torch.no_grad():
         model(tokens[:, :128], last_only=True)
@@ -1825,11 +1892,13 @@ def run_lm_path(device, cfg=None, batch: int = LM_BATCH,
     # Device time of one more scoring forward and one more decode step
     # (the cache has a free slot), against the untraced wall times above.
     with torch.no_grad():
-        score_busy = device_busy_ms(lambda: model(tokens, last_only=True))
+        score_trace = device_breakdown(
+            lambda: model(tokens, last_only=True), top=LM_TOP)
     pos = torch.full((batch, 1), prompt + gen - 1, device=device)
-    step_busy = device_busy_ms(lambda: make_serve_fns(model).decode(
-        generated[:, -1:], cache, pos))
-    require_launches("lm", launches)
+    step_trace = device_breakdown(lambda: make_serve_fns(model).decode(
+        generated[:, -1:], cache, pos), top=LM_TOP)
+    del cache
+    require_launches(path, launches)
     if launches["flash_attention"] != scoring_launches:
         raise AssertionError("generation launched the flash kernel")
     peak = torch.cuda.max_memory_allocated()
@@ -1841,6 +1910,57 @@ def run_lm_path(device, cfg=None, batch: int = LM_BATCH,
     if generated.shape != (batch, gen) or not (
             (generated >= 0) & (generated < cfg.vocab)).all():
         raise AssertionError("generated tokens out of range")
+    row = {"n_params": n_params,
+           "scoring_tokens_per_s": batch * prompt / score_s,
+           "scoring_s": score_s, "prefill_ms": prefill_s * 1e3,
+           "decode_steps": gen - 1,
+           "decode_tokens_per_s": batch * (gen - 1) / decode_s,
+           "decode_s": decode_s, "max_memory_bytes": peak,
+           "flash_launches_scoring": scoring_launches,
+           "flash_launches_scoring_by_body": scoring_bodies,
+           "flash_launches_generation": launches["flash_attention"]
+           - scoring_launches,
+           "scoring_device_busy_ms": score_trace["busy_ms"],
+           "decode_step_ms": decode_s / (gen - 1) * 1e3,
+           "decode_step_device_busy_ms": step_trace["busy_ms"],
+           "scoring_top_kernels": score_trace["top_kernels"],
+           "decode_step_top_kernels": step_trace["top_kernels"],
+           "max_abs_logit": float(pre_logits.float().abs().max())}
+    for what, trace in (("scoring forward", score_trace),
+                        ("decode step", step_trace)):
+        log(f"{tag} top kernels of a traced {what} ({trace['busy_ms']:.3f} "
+            f"ms busy, {trace['kernel_launches']} launches): "
+            + "; ".join(f"{n} {ms:.3f} ms x{c}"
+                        for n, ms, c in trace["top_kernels"]))
+    return {"model": model, "tokens": tokens, "scores": scores,
+            "pre_logits": pre_logits, "generated": generated,
+            "launches": launches, "row": row}
+
+
+def log_served(path: str, row: dict, batch: int, prompt: int, gen: int,
+               sample) -> None:
+    log(f"[{path}] {json.dumps(row)}")
+    log(f"[{path}] scoring {row['scoring_tokens_per_s']:.1f} tokens/s "
+        f"({batch} x {prompt}); prefill {row['prefill_ms']:.3f} ms; decode "
+        f"{row['decode_tokens_per_s']:.3f} tokens/s ({batch} x {gen - 1} "
+        f"steps, {row['decode_step_ms']:.3f} ms a step); peak memory "
+        f"{row['max_memory_bytes']} bytes; card busy "
+        f"{row['scoring_device_busy_ms']:.3f} ms of a "
+        f"{row['scoring_s'] * 1e3:.3f} ms scoring forward and "
+        f"{row['decode_step_device_busy_ms']:.3f} ms of a "
+        f"{row['decode_step_ms']:.3f} ms decode step (profiler against "
+        f"untraced wall time); sample {sample}")
+
+
+def run_lm_path(device, cfg=None, batch: int = LM_BATCH,
+                prompt: int = LM_PROMPT, gen: int = LM_GEN,
+                capacity: int = LM_CAPACITY) -> dict:
+    """Dense-LM serving at full width (``serve_lm``), its bf16 scoring
+    logits (flash route) held to the prefill logits (plain route) within
+    LM_BF16_LOGIT_ATOL with the same next tokens, and the logit spread."""
+    cfg = cfg or get_config(LM_ARCH, use_flash=True)
+    out = serve_lm(device, cfg, "lm", batch, prompt, gen, capacity)
+    scores, pre_logits, row = out["scores"], out["pre_logits"], out["row"]
     diff = float((scores.float() - pre_logits.float()).abs().max())
     agree = float((scores[:, -1].argmax(-1)
                    == pre_logits[:, -1].argmax(-1)).float().mean())
@@ -1851,33 +1971,254 @@ def run_lm_path(device, cfg=None, batch: int = LM_BATCH,
     if agree != 1.0:
         raise AssertionError(f"the flash and plain routes pick another next "
                              f"token for {1 - agree:.0%} of the requests")
-    row = {"scoring_tokens_per_s": batch * prompt / score_s,
-           "scoring_s": score_s, "prefill_ms": prefill_s * 1e3,
-           "decode_steps": gen - 1,
-           "decode_tokens_per_s": batch * (gen - 1) / decode_s,
-           "decode_s": decode_s, "max_memory_bytes": peak,
-           "flash_launches_scoring": scoring_launches,
-           "flash_launches_scoring_by_body": scoring_bodies,
-           "flash_launches_generation": launches["flash_attention"]
-           - scoring_launches,
-           "scoring_device_busy_ms": score_busy,
-           "decode_step_ms": decode_s / (gen - 1) * 1e3,
-           "decode_step_device_busy_ms": step_busy,
-           "flash_vs_plain_bf16_max_logit_diff": diff,
-           "max_abs_logit": float(pre_logits.float().abs().max()),
-           "next_token_agreement": agree}
-    row["logit_spread"] = lm_logit_spread(model, cfg, device, batch, prompt)
-    log(f"[lm] {json.dumps(row)}")
-    log(f"[lm] scoring {row['scoring_tokens_per_s']:.1f} tokens/s "
-        f"({batch} x {prompt}); prefill {row['prefill_ms']:.3f} ms; decode "
-        f"{row['decode_tokens_per_s']:.3f} tokens/s ({batch} x {gen - 1} "
-        f"steps); peak memory {peak} bytes; card busy {score_busy:.3f} ms "
-        f"of a {score_s * 1e3:.3f} ms scoring forward and "
-        f"{step_busy:.3f} ms of a {row['decode_step_ms']:.3f} ms decode "
-        f"step (profiler against untraced wall time); bfloat16 logits of the flash "
-        f"route (scoring) and the plain route (prefill) differ by at most "
-        f"{diff:.4g}; sample {generated[0, :12].tolist()}")
-    return {"launches": launches, "row": row}
+    row.update(flash_vs_plain_bf16_max_logit_diff=diff,
+               next_token_agreement=agree)
+    row["logit_spread"] = lm_logit_spread(out["model"], cfg, device, batch,
+                                          prompt)
+    log_served("lm", row, batch, prompt, gen, out["generated"][0, :12]
+               .tolist())
+    log(f"[lm] bfloat16 logits of the flash route (scoring) and the plain "
+        f"route (prefill) differ by at most {diff:.4g}")
+    return {"launches": out["launches"], "row": row}
+
+
+def record_routes(fn, replay=None):
+    """(fn's result, the MoE routes its layers took, in call order):
+    ``archs.blocks.moe_route``, which ``apply_moe`` calls through the
+    module, wrapped to keep each route, or, given ``replay``, to hand the
+    layers those routes in turn instead of routing."""
+    routes, orig = [], arch_blocks.moe_route
+    given = iter(replay) if replay is not None else None
+
+    def recording(cfg, p, x):
+        r = next(given) if given is not None else orig(cfg, p, x)
+        routes.append(r)
+        return r
+
+    arch_blocks.moe_route = recording
+    try:
+        return fn(), routes
+    finally:
+        arch_blocks.moe_route = orig
+
+
+def moe_dispatch_split(model, cfg, tokens) -> dict:
+    """One MoE layer at the scoring shape: ``apply_moe`` per call (events)
+    against its expert products alone (``_expert_ffn`` on a buffer of the
+    same (E, G·C, d) shape); the rest is routing, dispatch and combine."""
+    p = model.layers[0].mlp
+    with torch.no_grad():
+        x = rmsnorm(model.embed[tokens], model.layers[0].ln_mlp,
+                    cfg.norm_eps)
+        C = arch_blocks.moe_capacity(cfg, tokens.shape[1])
+        buf = x.reshape(-1, cfg.d_model)[:tokens.shape[0] * C].expand(
+            cfg.n_experts, -1, -1).contiguous()
+        moe_ms = time_cuda(lambda: arch_blocks.apply_moe(cfg, p, x), 10, 3)
+        ffn_ms = time_cuda(lambda: arch_blocks._expert_ffn(p, buf), 10, 3)
+    share = 1.0 - ffn_ms / moe_ms
+    log(f"[moe] one layer's apply_moe at {tuple(x.shape)}, capacity {C}: "
+        f"{moe_ms:.4f} ms a call, its expert products "
+        f"{tuple(buf.shape)} {ffn_ms:.4f} ms; routing, dispatch and combine "
+        f"{share:.3f} of the layer's MoE")
+    return {"apply_moe_ms": moe_ms, "expert_products_ms": ffn_ms,
+            "dispatch_combine_share": share}
+
+
+def moe_drift_by_depth(model, cfg, tokens, depths=MOE_DRIFT_DEPTHS) -> list:
+    """The first ``d`` layers of the same weights for each depth: K4's,
+    SDPA's and the plain route's bf16 scoring logits free-running, and the
+    plain route and SDPA with K4's routing replayed; each pair's largest
+    difference and next-token agreement."""
+    layers = model.layers
+    rows = []
+
+    def sdpa_route(q, k, v, causal=True):
+        return sdpa(q, k, v, causal)
+
+    def forward(attention, use_flash, replay=None):
+        arch_blocks.flash_attention = attention
+        model.cfg = cfg.with_(use_flash=use_flash)
+        with torch.no_grad():
+            return record_routes(lambda: model(tokens, last_only=True)[0],
+                                 replay)
+
+    def pair(a, b):
+        return [float((a.float() - b.float()).abs().max()),
+                float((a[:, -1].argmax(-1) == b[:, -1].argmax(-1))
+                      .float().mean())]
+
+    try:
+        for d in depths:
+            model.layers = layers[:d]
+            k4, routes = forward(flash_ops.flash_attention, True)
+            plain, _ = forward(flash_ops.flash_attention, False)
+            other, _ = forward(sdpa_route, True)
+            plain_r, _ = forward(flash_ops.flash_attention, False, routes)
+            other_r, _ = forward(sdpa_route, True, routes)
+            rows.append({"depth": d, "k4_plain": pair(k4, plain),
+                         "sdpa_plain": pair(other, plain),
+                         "k4_plain_replayed": pair(k4, plain_r),
+                         "sdpa_plain_replayed": pair(other_r, plain_r)})
+    finally:
+        model.layers = layers
+        model.cfg = cfg
+        arch_blocks.flash_attention = flash_ops.flash_attention
+    log("[moe] by depth, max |d| / next-token agreement (K4 - plain, SDPA - "
+        "plain; routing replayed: K4 - plain, SDPA - plain): " + "; ".join(
+            f"{r['depth']}: " + ", ".join(
+                f"{r[k][0]:.4g}/{r[k][1]:.2f}" for k in
+                ("k4_plain", "sdpa_plain", "k4_plain_replayed",
+                 "sdpa_plain_replayed")) for r in rows))
+    return rows
+
+
+def run_moe_path(device, cfg=None, batch: int = LM_BATCH,
+                 prompt: int = LM_PROMPT, gen: int = LM_GEN,
+                 capacity: int = LM_CAPACITY) -> dict:
+    """MoE serving at full width (``serve_lm`` on moonshot-v1-16b-a3b),
+    then, on the same prompts, with every layer's routing recorded: a
+    second scoring forward, which must equal the first bit for bit; the
+    plain route's forward (the share of token-slots capacity drops, and
+    of (layer, token) top-k sets the two routes pick differently, layer by
+    layer); the plain route and SDPA again with the flash route's routing
+    replayed; the logit spread (MOE_LOGIT_GATE's gate); one layer's
+    dispatch share; and the routes' drift at MOE_DRIFT_DEPTHS."""
+    cfg = cfg or get_config(MOE_ARCH, use_flash=True)
+    out = serve_lm(device, cfg, "moe", batch, prompt, gen, capacity)
+    model, tokens, scores, row = (out["model"], out["tokens"], out["scores"],
+                                  out["row"])
+    with torch.no_grad():
+        again, k4_routes = record_routes(
+            lambda: model(tokens, last_only=True)[0])
+        model.cfg = cfg.with_(use_flash=False)
+        try:
+            plain, plain_routes = record_routes(
+                lambda: model(tokens, last_only=True)[0])
+            replayed, _ = record_routes(
+                lambda: model(tokens, last_only=True)[0], replay=k4_routes)
+        finally:
+            model.cfg = cfg
+        arch_blocks.flash_attention = (
+            lambda q, k, v, causal=True: sdpa(q, k, v, causal))
+        try:
+            sdpa_replayed, _ = record_routes(
+                lambda: model(tokens, last_only=True)[0], replay=k4_routes)
+        finally:
+            arch_blocks.flash_attention = flash_ops.flash_attention
+    if not torch.equal(again, scores):
+        raise AssertionError("two scoring forwards on the card gave "
+                             "different logits")
+    if len(k4_routes) != cfg.n_layers or len(plain_routes) != cfg.n_layers:
+        raise AssertionError("a forward routed other than once a layer")
+    dropped = [float((~r.keep).float().mean()) for r in k4_routes]
+    differ = [float((a.gidx.sort(-1).values != b.gidx.sort(-1).values)
+                    .any(-1).float().mean())
+              for a, b in zip(k4_routes, plain_routes)]
+    del k4_routes, plain_routes
+
+    def next_agree(a, b):
+        return float((a[:, -1].argmax(-1) == b[:, -1].argmax(-1))
+                     .float().mean())
+
+    diff = float((scores.float() - plain.float()).abs().max())
+    replay_diff = float((scores.float() - replayed.float()).abs().max())
+    sdpa_replay_diff = float((sdpa_replayed.float() - replayed.float())
+                             .abs().max())
+    spread = lm_logit_spread(model, cfg, device, batch, prompt, "[moe]")
+    sdpa_max = max(r["sdpa"] for r in spread["rows"])
+    k4_max = max([diff] + [r["wgmma"] for r in spread["rows"]])
+    gate = MOE_LOGIT_GATE * sdpa_max
+    if not k4_max <= gate:
+        raise AssertionError(f"K4's scoring logits differ from the plain "
+                             f"route's by {k4_max:.4g} > {MOE_LOGIT_GATE} x "
+                             f"SDPA's {sdpa_max:.4g}")
+    split = moe_dispatch_split(model, cfg, tokens)
+    row["drift_by_depth"] = moe_drift_by_depth(model, cfg, tokens)
+    row.update(k4_vs_plain_bf16_max_logit_diff=diff,
+               k4_vs_plain_max_over_seeds=k4_max, sdpa_max_logit_diff=sdpa_max,
+               logit_gate=gate, next_token_agreement=next_agree(scores, plain),
+               replayed_routing_max_logit_diff=replay_diff,
+               replayed_routing_next_token_agreement=next_agree(scores,
+                                                                replayed),
+               replayed_routing_sdpa_max_logit_diff=sdpa_replay_diff,
+               scoring_bit_equal_on_repeat=True,
+               dropped_share_by_layer=dropped,
+               routing_differs_share_by_layer=differ,
+               routing_differs_share=float(np.mean(differ)),
+               prefill_next_token_agreement=next_agree(scores,
+                                                       out["pre_logits"]),
+               logit_spread=spread, **split)
+    log_served("moe", row, batch, prompt, gen,
+               out["generated"][0, :12].tolist())
+    marks = sorted({1, 2, 4, 8, 16, 32, cfg.n_layers} & set(
+        range(1, cfg.n_layers + 1)))
+    log(f"[moe] token-slots dropped by capacity a layer: min "
+        f"{min(dropped):.5f}, median {np.median(dropped):.5f}, max "
+        f"{max(dropped):.5f}; (layer, token) top-{cfg.top_k} sets on which "
+        f"K4's and the plain route pick different experts: "
+        f"{row['routing_differs_share']:.5f} over all layers, by layer "
+        + ", ".join(f"{i}: {differ[i - 1]:.5f}" for i in marks)
+        + f"; scoring logits bit-equal on repeat")
+    log(f"[moe] K4 against the plain route: max |d| {diff:.4g} (over the "
+        f"spread's seeds {k4_max:.4g}) against the gate {gate:.4g} "
+        f"({MOE_LOGIT_GATE} x SDPA's {sdpa_max:.4g}); next tokens agree for "
+        f"{row['next_token_agreement']:.2f} of the requests; with K4's "
+        f"routing replayed into the plain route: max |d| {replay_diff:.4g} "
+        f"(SDPA's, replayed the same way, {sdpa_replay_diff:.4g}), next "
+        f"tokens agree for "
+        f"{row['replayed_routing_next_token_agreement']:.2f}")
+    return {"launches": out["launches"], "row": row}
+
+
+def check_moe_against_host(device, arch: str = MOE_ARCH) -> dict:
+    """The smoke MoE model in float32 (TF32 off) on the card and, with the
+    same weights, on the host: the flash route's forward logits, prefill
+    and MOE_HOST_DECODE decode steps on the same tokens, and one train
+    step's loss and gradient norm, all within MOE_HOST_ATOL."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_smoke_config(arch, dtype="float32", use_flash=True)
+    card = build_model(cfg, device,
+                       torch.Generator(device=device).manual_seed(3))
+    host = build_model(cfg, "cpu")
+    host.load_state_dict({k: t.cpu() for k, t in card.state_dict().items()})
+    tokens = lm_prompts(cfg.vocab, 2, 48, "cpu", seed=4)
+    errs = {}
+    with torch.no_grad():
+        errs["forward"] = float((card(tokens.to(device))[0].cpu()
+                                 - host(tokens)[0]).abs().max())
+    sides = {}
+    for name, m in (("card", card), ("host", host)):
+        sf = make_serve_fns(m)
+        cache = m.init_cache(2, 40 + MOE_HOST_DECODE)
+        logits, cache = sf.prefill(tokens[:, :40].to(m.device), cache)
+        steps = [logits.cpu()]
+        for t in range(MOE_HOST_DECODE):
+            logits, cache = sf.decode(
+                tokens[:, 40 + t:41 + t].to(m.device), cache,
+                torch.full((2, 1), 40 + t, device=m.device))
+            steps.append(logits.cpu())
+        sides[name] = torch.cat(steps, 1)
+    errs["prefill_decode"] = float((sides["card"] - sides["host"]).abs()
+                                   .max())
+    tcfg = cfg.with_(use_flash=False)
+    batch = make_lm_batch(tcfg, global_batch=4, seq_len=16, step=0)
+    metrics = {}
+    for name, dev in (("card", device), ("host", "cpu")):
+        m = build_model(tcfg, dev)
+        m.load_state_dict(host.state_dict())
+        fns = make_lm_train_step(m, OptConfig(lr=1e-3))
+        _, _, metrics[name] = fns.step(*fns.init(), batch)
+    for k in ("loss", "grad_norm"):
+        errs[f"train_{k}"] = abs(float(metrics["card"][k])
+                                 - float(metrics["host"][k]))
+    if not all(np.isfinite(list(errs.values()))) or \
+            max(errs.values()) > MOE_HOST_ATOL:
+        raise AssertionError(f"the smoke MoE model on the card differs from "
+                             f"the host's: {errs}")
+    log(f"[moe] smoke {arch} float32 on the card against the host (max "
+        f"|d|, atol {MOE_HOST_ATOL}): " + ", ".join(
+            f"{k} {v:.3g}" for k, v in errs.items()))
+    return errs
 
 
 # ---------------------------------------------------------------------------
@@ -2195,9 +2536,12 @@ def check_runtime_against_host(model_subq, model_qs, device) -> None:
 
 def check_lm_flash_against_plain(device, n_layers: int = 4,
                                  cfg=None) -> float:
-    """glm4-9b at full width, ``n_layers`` layers, float32 with TF32 off:
-    the scoring logits with ``use_flash`` (the kernel) and without it (the
-    einsum route) on the same weights and prompts, within LM_F32_ATOL."""
+    """glm4-9b (or ``cfg``) at full width, ``n_layers`` layers, float32
+    with TF32 off: the scoring logits with ``use_flash`` (the kernel) and
+    without it (the einsum route) on the same weights and prompts, within
+    LM_F32_ATOL with the same next tokens.  For an MoE configuration the
+    plain route replays the routing the flash route took, so no rounding
+    flips an expert."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = cfg or get_config(LM_ARCH, n_layers=n_layers, dtype="float32",
@@ -2206,15 +2550,21 @@ def check_lm_flash_against_plain(device, n_layers: int = 4,
                         torch.Generator(device=device).manual_seed(1))
     tokens = lm_prompts(cfg.vocab, LM_BATCH, LM_PROMPT, device)
     with torch.no_grad():
-        flash, _ = model(tokens, last_only=True)
+        flash, routes = record_routes(
+            lambda: model(tokens, last_only=True)[0])
         model.cfg = cfg.with_(use_flash=False)
-        plain, _ = model(tokens, last_only=True)
+        plain, _ = record_routes(lambda: model(tokens, last_only=True)[0],
+                                 replay=routes)
     err = float((flash - plain).abs().max())
-    if not (torch.isfinite(flash).all() and err <= LM_F32_ATOL):
-        raise AssertionError(f"flash and plain routes differ by {err:.3g}")
+    agree = bool((flash[:, -1].argmax(-1) == plain[:, -1].argmax(-1)).all())
+    if not (torch.isfinite(flash).all() and err <= LM_F32_ATOL and agree):
+        raise AssertionError(f"flash and plain routes differ by {err:.3g}; "
+                             f"same next tokens: {agree}")
     log(f"[check] {cfg.n_layers}-layer {cfg.name} float32 scoring logits: "
-        f"flash route within {err:.3g} of the plain route (atol "
-        f"{LM_F32_ATOL}; |logit| up to {float(plain.abs().max()):.3g})")
+        f"flash route within {err:.3g} of the plain route"
+        + (" (its routing replayed)" if routes else "")
+        + f" (atol {LM_F32_ATOL}; |logit| up to "
+        f"{float(plain.abs().max()):.3g}), the same next tokens")
     return err
 
 
@@ -3282,6 +3632,13 @@ def main() -> int:
     cluster_path = run_cluster_path(device, compile_path["k1_inputs"])
     lm_path = run_lm_path(device)
     torch.cuda.empty_cache()
+    moe_path = run_moe_path(device)
+    torch.cuda.empty_cache()
+    check_lm_flash_against_plain(device, cfg=get_config(
+        MOE_ARCH, n_layers=MOE_CHECK_LAYERS, dtype="float32",
+        use_flash=True))
+    torch.cuda.empty_cache()
+    check_moe_against_host(device)
     check_lm_flash_against_plain(device)
     torch.cuda.empty_cache()
     check_lm_against_host(device)
@@ -3298,10 +3655,13 @@ def main() -> int:
              "examples": examples_path["launches"],
              "cluster": cluster_path["launches"],
              "lm": lm_path["launches"],
+             "moe": moe_path["launches"],
              "lm_train": lm_train_path["launches"]}
     kernels = []
     entries["flash_attention"]["lm_launches_by_body"] = \
         lm_path["row"]["flash_launches_scoring_by_body"]
+    entries["flash_attention"]["moe_launches_by_body"] = \
+        moe_path["row"]["flash_launches_scoring_by_body"]
     for k in KERNELS:
         e = dict(entries[k["name"]])
         by_path = {p: paths[p][k["name"]] for p in paths}

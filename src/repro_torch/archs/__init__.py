@@ -1,4 +1,4 @@
-"""Language-model architectures of the port (the dense family so far).
+"""Language-model architectures of the port (the dense and MoE families).
 
 ``registry.build_model`` is the entry point: an ``ArchConfig`` in, an
 :class:`~repro_torch.archs.lm.LM` module on the card (or the host, when

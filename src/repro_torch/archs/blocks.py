@@ -1,8 +1,8 @@
-"""Transformer blocks of the dense family: attention (GQA + RoPE) and the
-SwiGLU MLP, cache-aware.
+"""Transformer blocks of the dense and MoE families: attention (GQA +
+RoPE), the SwiGLU MLP and the top-k capacity MoE MLP, cache-aware.
 
 The counterpart of the reference's ``archs/blocks.py`` for what the dense
-family runs.  Conventions:
+and MoE families run.  Conventions:
 
 * ``init_*`` returns the parameter dict of ONE layer, drawn from an
   explicit ``torch.Generator``; the model wraps it in a module.
@@ -16,11 +16,12 @@ family runs.  Conventions:
   flash-attention kernel on the cacheless forward when ``cfg.use_flash``.
 
 The reference's activation-sharding constraints are no-ops without a mesh
-and are dropped.  Cross-attention (the audio family), MoE, Mamba and RWKV
+and are dropped.  Cross-attention (the audio family), Mamba and RWKV
 blocks come with the slices that port those families.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Any, Dict, Optional, Tuple
 
@@ -33,7 +34,9 @@ from .common import ArchConfig, DTYPES, init_dense, rope
 Params = Dict[str, torch.Tensor]
 NEG = -1e30
 
-__all__ = ["init_attention", "apply_attention", "init_mlp", "apply_mlp"]
+__all__ = ["init_attention", "apply_attention", "init_mlp", "apply_mlp",
+           "init_moe", "apply_moe", "moe_capacity", "moe_gates",
+           "moe_route", "MoeRoute"]
 
 
 # ---------------------------------------------------------------------------
@@ -228,3 +231,166 @@ def init_mlp(gen: torch.Generator, cfg: ArchConfig) -> Params:
 
 def apply_mlp(cfg: ArchConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+
+
+# ---------------------------------------------------------------------------
+# MoE MLP (top-k dispatch with capacity)
+# ---------------------------------------------------------------------------
+
+def init_moe(gen: torch.Generator, cfg: ArchConfig) -> Params:
+    """The router (float32 whatever ``cfg.dtype``, as the reference's) and
+    the experts' SwiGLU weights stacked on a leading E axis."""
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+    dt = DTYPES[cfg.dtype]
+    return {
+        "router": init_dense(gen, (d, e), torch.float32),
+        "e_gate": init_dense(gen, (e, d, f), dt),
+        "e_up": init_dense(gen, (e, d, f), dt),
+        "e_down": init_dense(gen, (e, f, d), dt,
+                             scale=1.0 / math.sqrt(f * 2 * cfg.n_layers)),
+    }
+
+
+def _expert_ffn(p: Params, xe: torch.Tensor) -> torch.Tensor:
+    """(E, N, D) per-expert SwiGLU FFN → (E, N, D)."""
+    h = F.silu(torch.bmm(xe, p["e_gate"])) * torch.bmm(xe, p["e_up"])
+    return torch.bmm(h, p["e_down"])
+
+
+def moe_capacity(cfg: ArchConfig, S: int, impl: str = "sort") -> int:
+    """Slots an expert takes from a group of S tokens: ⌈S·k/E·cf⌉ in Python
+    floats, as the reference computes it, and at most S on the einsum
+    route (the reference's two routes differ there, and so do the port's)."""
+    C = math.ceil(S * cfg.top_k / cfg.n_experts * cfg.capacity_factor)
+    return min(C, S) if impl == "einsum" else C
+
+
+def moe_gates(cfg: ArchConfig, p: Params, x: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(gate values, expert ids), each (G, S, k): the softmax of the float32
+    router logits, its top k, renormalised to sum to 1.
+
+    ``jax.lax.top_k`` puts the lower index first among equal values;
+    ``torch.topk`` promises no order there.  Only exactly equal gates are
+    affected, and a token's slot order changes neither the dispatch (its
+    experts are distinct, so the stable sort ranks its slots by token
+    alone) nor the combine (summed in expert order).
+    """
+    gates = torch.softmax(x.to(torch.float32) @ p["router"], dim=-1)
+    gval, gidx = torch.topk(gates, cfg.top_k, dim=-1)
+    gval = gval / torch.clamp(gval.sum(-1, keepdim=True), min=1e-9)
+    return gval, gidx
+
+
+@dataclasses.dataclass
+class MoeRoute:
+    """The sort route's dispatch of (G, S, d) tokens to E experts.
+
+    ``gval``/``gidx`` (G, S, k) are the gates; ``pos`` (G, S, k) is each
+    token-slot's rank among its expert's slots of the group, in token
+    order, and ``keep`` = ``pos`` < ``capacity``: the slots past capacity
+    are dropped.  ``order`` (G, S·k) lists the flat slots (s·k + j) sorted
+    by expert, stably; ``starts``/``counts`` (G, E) are each expert's run
+    in it.
+    """
+    gval: torch.Tensor
+    gidx: torch.Tensor
+    capacity: int
+    order: torch.Tensor
+    starts: torch.Tensor
+    counts: torch.Tensor
+    pos: torch.Tensor
+    keep: torch.Tensor
+
+
+def moe_route(cfg: ArchConfig, p: Params, x: torch.Tensor) -> MoeRoute:
+    """Route each group (batch row) of ``x`` on its own, as the reference
+    maps its dispatch over groups: a stable argsort of the S·k expert ids,
+    each expert's start by a left-side search, a slot's rank from its
+    place in the sorted order."""
+    G, S, _ = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    dev = x.device
+    gval, gidx = moe_gates(cfg, p, x)
+    e_flat = gidx.reshape(G, S * k)
+    order = torch.argsort(e_flat, dim=-1, stable=True)
+    e_sorted = torch.gather(e_flat, 1, order)
+    starts = torch.searchsorted(
+        e_sorted, torch.arange(e, device=dev).repeat(G, 1))
+    counts = torch.diff(starts, dim=1, append=torch.full(
+        (G, 1), S * k, dtype=starts.dtype, device=dev))
+    rank = torch.empty_like(order).scatter_(
+        1, order, torch.arange(S * k, device=dev).repeat(G, 1))
+    pos = (rank - torch.gather(starts, 1, e_flat)).reshape(G, S, k)
+    C = moe_capacity(cfg, S)
+    return MoeRoute(gval=gval, gidx=gidx, capacity=C, order=order,
+                    starts=starts, counts=counts, pos=pos, keep=pos < C)
+
+
+def _moe_einsum(cfg: ArchConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+    """The classic (G, S, E, C) one-hot dispatch, for small configurations
+    and cross-checks."""
+    G, S, d = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    gval, gidx = moe_gates(cfg, p, x)
+    C = moe_capacity(cfg, S, "einsum")
+    onehot = F.one_hot(gidx, e).to(torch.float32)            # (G, S, k, E)
+    pos = (torch.cumsum(onehot.reshape(G, S * k, e), dim=1) - 1.0
+           ).reshape(G, S, k, e)
+    within = (pos < C) & (onehot > 0)
+    slot = torch.where(within, pos, 0.0).to(torch.int64)
+    slot_oh = F.one_hot(slot, C).to(x.dtype) \
+        * within.to(x.dtype)[..., None]                      # (G,S,k,E,C)
+    dispatch = slot_oh.sum(2)                                # (G, S, E, C)
+    combine = (slot_oh * gval.to(x.dtype)[..., None, None]).sum(2)
+    xe = torch.einsum("gsec,gsd->gecd", dispatch, x)
+    ye = _expert_ffn(p, xe.transpose(0, 1).reshape(e, G * C, d))
+    ye = ye.reshape(e, G, C, d).transpose(0, 1)              # (G, E, C, D)
+    return torch.einsum("gsec,gecd->gsd", combine, ye)
+
+
+def apply_moe(cfg: ArchConfig, p: Params, x: torch.Tensor,
+              impl: str = "sort") -> torch.Tensor:
+    """Top-k capacity MoE on (G, S, d) tokens, each batch row a group.
+
+    ``sort`` (default): :func:`moe_route` ranks the token-slots within
+    their experts; the (E, G·C, d) buffer is gathered (slot c of expert e
+    holds its run's c-th token, zeros past its count), run through the
+    per-expert SwiGLU products, and each token gathers its kept slots'
+    outputs back, weighted by its gates in ``x.dtype``.  The reference
+    scatter-adds those k outputs in expert-sorted order; the port sums
+    them in the same order with one add per slot, so no atomics reorder
+    the sum and a forward is bit-reproducible on the card.
+
+    ``einsum``: the (G, S, E, C) one-hot dispatch.
+    """
+    if impl == "einsum":
+        return _moe_einsum(cfg, p, x)
+    if impl != "sort":
+        raise ValueError(f"unknown MoE dispatch {impl!r}")
+    G, S, d = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    r = moe_route(cfg, p, x)
+    C = r.capacity
+    c = torch.arange(C, device=x.device)
+    slot = (r.starts[:, :, None] + c).clamp(max=S * k - 1)   # (G, E, C)
+    tok = torch.gather(r.order, 1, slot.reshape(G, e * C)) // k
+    buf = torch.gather(x, 1, tok[..., None].expand(G, e * C, d))
+    filled = (c < r.counts[:, :, None]).reshape(G, e * C, 1)
+    buf = torch.where(filled, buf, 0.0)
+    ye = _expert_ffn(p, buf.reshape(G, e, C, d).transpose(0, 1)
+                     .reshape(e, G * C, d)).reshape(e * G * C, d)
+    # Each token's slots in expert order, its k output rows and weights.
+    by_e = torch.argsort(r.gidx, dim=-1)
+    gidx = torch.gather(r.gidx, 2, by_e)
+    pos = torch.gather(r.pos, 2, by_e).clamp(max=C - 1)
+    w = (torch.gather(r.gval, 2, by_e).to(x.dtype)
+         * torch.gather(r.keep, 2, by_e).to(x.dtype))
+    g = torch.arange(G, device=x.device)[:, None, None]
+    rows = gidx * (G * C) + g * C + pos                      # (G, S, k)
+    out = None
+    for j in range(k):
+        y = ye.index_select(0, rows[:, :, j].reshape(-1)).reshape(G, S, d) \
+            * w[:, :, j, None]
+        out = y if out is None else out + y
+    return out

@@ -1,12 +1,17 @@
-"""Decoder-only language model of the dense family, as one ``nn.Module``.
+"""Decoder-only language models of the dense and MoE families, as one
+``nn.Module``.
 
-The counterpart of the reference's ``archs/lm.py`` for the dense family.
-Where the reference scans over parameters stacked on a leading L axis, the
-port keeps one module per layer in an ``nn.ModuleList`` and loops over
-them.  Parameter names and layouts are the reference's (weights are
-(d_in, d_out) and a layer computes ``x @ W``), so :func:`params_from_reference`
-maps a reference parameter tree onto :meth:`LM.state_dict` leaf by leaf
-and :func:`params_to_reference` maps it back.
+The counterpart of the reference's ``archs/lm.py`` for those two families:
+a stack of pre-norm attention layers whose MLP is the SwiGLU MLP (dense)
+or the top-k capacity MoE (moe).  Where the reference scans over
+parameters stacked on a leading L axis, the port keeps one module per
+layer in an ``nn.ModuleList`` and loops over them.  Parameter names and
+layouts are the reference's (weights are (d_in, d_out) and a layer
+computes ``x @ W``; an MoE layer's ``mlp`` holds ``router``, ``e_gate``,
+``e_up``, ``e_down``, the experts stacked on a leading E axis), so
+:func:`params_from_reference` maps a reference parameter tree onto
+:meth:`LM.state_dict` leaf by leaf and :func:`params_to_reference` maps it
+back.
 
 Parameters are built frozen, so serving builds no autograd graph; the
 train step (``train/train_loop.py``) turns gradients on for the model it
@@ -26,7 +31,8 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from .blocks import apply_attention, apply_mlp, init_attention, init_mlp
+from .blocks import (apply_attention, apply_mlp, apply_moe, init_attention,
+                     init_mlp, init_moe)
 from .common import ArchConfig, DTYPES, init_dense, rmsnorm
 
 __all__ = ["LM", "params_from_reference", "params_to_reference",
@@ -43,19 +49,21 @@ def _frozen(t: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=False)
 
 
-class _DenseLayer(nn.Module):
-    """One pre-norm decoder layer: attention then the SwiGLU MLP."""
+class _AttnLayer(nn.Module):
+    """One pre-norm decoder layer: attention, then the SwiGLU MLP or, with
+    ``moe``, the top-k capacity MoE."""
 
-    def __init__(self, cfg: ArchConfig, gen: torch.Generator):
+    def __init__(self, cfg: ArchConfig, gen: torch.Generator, moe: bool):
         super().__init__()
         ones = torch.ones((cfg.d_model,), dtype=torch.float32,
                           device=gen.device)
+        self.moe = moe
         self.ln_attn = _frozen(ones)
         self.ln_mlp = _frozen(ones.clone())
         self.attn = nn.ParameterDict(
             {k: _frozen(v) for k, v in init_attention(gen, cfg).items()})
-        self.mlp = nn.ParameterDict(
-            {k: _frozen(v) for k, v in init_mlp(gen, cfg).items()})
+        mlp = init_moe(gen, cfg) if moe else init_mlp(gen, cfg)
+        self.mlp = nn.ParameterDict({k: _frozen(v) for k, v in mlp.items()})
 
     def forward(self, cfg: ArchConfig, x: torch.Tensor,
                 positions: torch.Tensor, cache: Optional[Dict[str, Any]]):
@@ -63,13 +71,16 @@ class _DenseLayer(nn.Module):
             cfg, self.attn, rmsnorm(x, self.ln_attn, cfg.norm_eps), positions,
             cache=cache)
         x = x + h
-        x = x + apply_mlp(cfg, self.mlp, rmsnorm(x, self.ln_mlp, cfg.norm_eps))
+        hn = rmsnorm(x, self.ln_mlp, cfg.norm_eps)
+        x = x + (apply_moe(cfg, self.mlp, hn) if self.moe
+                 else apply_mlp(cfg, self.mlp, hn))
         return x, new_cache
 
 
 class LM(nn.Module):
-    """Dense decoder-only LM: embedding, ``n_layers`` layers, final norm and
-    head (the embedding's transpose when ``tie_embeddings``).
+    """Decoder-only LM of the dense or MoE family: embedding, ``n_layers``
+    attention layers, final norm and head (the embedding's transpose when
+    ``tie_embeddings``).  Both families take the dense KV cache.
 
     Weights are drawn from ``generator`` on its device.  ``cfg`` is read on
     every call, so replacing it (``model.cfg = model.cfg.with_(use_flash=
@@ -78,7 +89,7 @@ class LM(nn.Module):
 
     def __init__(self, cfg: ArchConfig, *, generator: torch.Generator):
         super().__init__()
-        if cfg.family != "dense":
+        if cfg.family not in ("dense", "moe"):
             raise NotImplementedError(
                 f"{cfg.name}: the {cfg.family} family is not ported yet "
                 "(ROADMAP queue 1, item 13, the rest of the LLM scaffold)")
@@ -88,7 +99,8 @@ class LM(nn.Module):
                                         dt, 0.02))
         self.norm_f = _frozen(torch.ones((cfg.d_model,), dtype=torch.float32,
                                          device=generator.device))
-        self.layers = nn.ModuleList(_DenseLayer(cfg, generator)
+        moe = cfg.family == "moe"
+        self.layers = nn.ModuleList(_AttnLayer(cfg, generator, moe)
                                     for _ in range(cfg.n_layers))
         if not cfg.tie_embeddings:
             self.lm_head = _frozen(init_dense(

@@ -1,9 +1,11 @@
 """Architecture registry: ``--arch <id>`` → configuration → model.
 
 ``ARCH_IDS`` lists every architecture the reference knows; the port has
-the configurations and the model of the dense family (minicpm-2b,
-deepseek-coder-33b, glm4-9b, qwen2-72b).  The others raise
-``NotImplementedError`` until their family is ported.
+the configurations and the models of the dense family (minicpm-2b,
+deepseek-coder-33b, glm4-9b, qwen2-72b) and the MoE family (dbrx-132b,
+moonshot-v1-16b-a3b).  The others (jamba-1.5-large-398b, rwkv6-1.6b,
+whisper-base, internvl2-76b) raise ``NotImplementedError`` until their
+family is ported.
 """
 from __future__ import annotations
 
@@ -31,7 +33,8 @@ ARCH_IDS: List[str] = [
     "internvl2-76b",
 ]
 
-_PORTED = ("minicpm-2b", "deepseek-coder-33b", "glm4-9b", "qwen2-72b")
+_PORTED = ("minicpm-2b", "deepseek-coder-33b", "glm4-9b", "qwen2-72b",
+           "dbrx-132b", "moonshot-v1-16b-a3b")
 
 
 def _module(arch_id: str):

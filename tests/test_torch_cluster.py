@@ -7,9 +7,9 @@ packages evaluate the same closed forms on the same numbers and are held
 exactly:
 
 * ``ClusterCostModel.stage_eval`` on random unit θ, every block, for the
-  10 configurations × 4 shape cells (the six configurations whose family
+  10 configurations × 4 shape cells (the four configurations whose family
   is not ported are carried across field for field; dbrx-132b and
-  moonshot-v1-16b-a3b take the MoE branches);
+  moonshot-v1-16b-a3b, ported, take the MoE branches);
 * ``autotune``'s launch plans (θ dicts, prediction, front) and
   ``summary()`` with the solve time masked, for the 10 configurations × 3
   weights, on the float64 host route and, for one configuration, with the
@@ -44,7 +44,8 @@ from repro_torch.cluster.runtime_adapt import StepAdapter
 from repro_torch.core.moo import pareto as port_pareto
 from repro_torch.launch import shapes as port_shapes
 
-PORTED = ("minicpm-2b", "deepseek-coder-33b", "glm4-9b", "qwen2-72b")
+PORTED = ("minicpm-2b", "deepseek-coder-33b", "glm4-9b", "qwen2-72b",
+          "dbrx-132b", "moonshot-v1-16b-a3b")
 WEIGHTS = [(0.95, 0.05), (0.5, 0.5), (0.05, 0.95)]
 CLUSTER_SRC = pathlib.Path(port_costmodel.__file__).parent
 
@@ -94,7 +95,18 @@ def test_h100_figures_and_no_tpu_figure():
 
 def test_unported_family_still_raises():
     with pytest.raises(NotImplementedError, match="item 13"):
-        port_autotune.autotune("dbrx-132b", device="cpu")
+        port_autotune.autotune("jamba-1.5-large-398b", device="cpu")
+
+
+@pytest.mark.parametrize("arch", ["dbrx-132b", "moonshot-v1-16b-a3b"])
+def test_moe_autotune_takes_its_own_config(arch, monkeypatch):
+    """``get_config`` serves the MoE family, so ``autotune`` plans it
+    without ``arch_cfg``, as the reference does."""
+    pin_reference_figures(monkeypatch)
+    want = ref_autotune.autotune(arch, "train_4k", weights=(0.5, 0.5))
+    got = port_autotune.autotune(arch, "train_4k", weights=(0.5, 0.5),
+                                 device="cpu")
+    _assert_plans_equal(got, want)
 
 
 def test_autotune_without_card_raises():

@@ -50,6 +50,7 @@ from repro_torch.queryengine.workloads import (default_workload,
 from repro_torch.serve import RuntimeSession, TuningService
 from repro_torch.train.checkpoint import restore_checkpoint, save_checkpoint
 from repro_torch.train.optimizer import OptConfig as LMOptConfig
+from repro_torch.train.serve import make_serve_fns as make_lm_serve_fns
 from repro_torch.train.train_loop import make_train_step as make_lm_train_step
 
 from _runtime_pick_cases import (CASES, PICK_THRESHOLDS, budget_round,
@@ -718,6 +719,69 @@ def test_smoke_lm_flash_card_matches_host(cuda_device, arch):
     torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=0)
 
 
+@pytest.mark.parametrize("arch", ["dbrx-132b", "moonshot-v1-16b-a3b"])
+def test_smoke_moe_card_matches_host(cuda_device, arch):
+    """The smoke MoE model with ``use_flash`` on the card against the same
+    weights on the host, float32 with TF32 off: the forward's logits, then
+    prefill and 4 decode steps on the same tokens, within atol 1e-4."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_smoke_config(arch, dtype="float32", use_flash=True)
+    card = build_model(cfg, cuda_device)
+    host = build_model(cfg, "cpu")
+    host.load_state_dict({k: t.cpu() for k, t in card.state_dict().items()})
+    tokens = torch.from_numpy(
+        np.random.default_rng(2).integers(0, cfg.vocab, (2, 48)))
+    before = flash_ops.LAUNCHES
+    got, _ = card(tokens)
+    assert flash_ops.LAUNCHES == before + cfg.n_layers
+    want, _ = host(tokens)
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=0)
+    sides = []
+    for m in (card, host):
+        sf = make_lm_serve_fns(m)
+        cache = m.init_cache(2, 44)
+        logits, cache = sf.prefill(tokens[:, :40].to(m.device), cache)
+        out = [logits.cpu()]
+        for t in range(4):
+            logits, cache = sf.decode(tokens[:, 40 + t:41 + t].to(m.device),
+                                      cache, torch.full((2, 1), 40 + t,
+                                                        device=m.device))
+            out.append(logits.cpu())
+        sides.append(torch.cat(out, 1))
+    torch.testing.assert_close(sides[0], sides[1], atol=1e-4, rtol=0)
+
+
+def test_moe_scoring_is_bit_reproducible_on_card(cuda_device):
+    """Two bfloat16 scoring forwards of the MoE model (flash route, 4 x 512
+    tokens, 8 experts top-2) give bit-equal logits: the combine sums each
+    token's expert outputs in expert order, without atomics."""
+    cfg = get_smoke_config("moonshot-v1-16b-a3b", use_flash=True,
+                           d_model=512, n_heads=4, n_kv=4, d_head=128)
+    model = build_model(cfg, cuda_device)
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab, (4, 512))).to(cuda_device)
+    with torch.no_grad():
+        a, _ = model(tokens)
+        b, _ = model(tokens)
+    assert a.dtype == torch.bfloat16 and torch.isfinite(a).all()
+    assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+
+
+def test_flash_attention_at_the_moe_shape(cuda_device):
+    """K4 at moonshot-v1-16b-a3b's scoring shape (4 x 2048 tokens, 16 heads
+    of 128, Hq = Hkv, bf16) takes the tensor-core body and stays within
+    a + r|want| of the float32 plain version (FLASH_SCALED_TOL)."""
+    q, k, v = _flash_inputs(4, 16, 16, 2048, 2048, 128, torch.bfloat16,
+                            cuda_device, 16)
+    before = dict(flash_ops.LAUNCHES_BY_BODY)
+    got = flash_ops.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert flash_ops.LAUNCHES_BY_BODY["wgmma"] == before["wgmma"] + 1
+    torch.testing.assert_close(got.float(), attention_ref(
+        q, k, v, causal=True).float(), atol=3e-2, rtol=0)
+    _assert_within_scaled_tol(got, q, k, v, True)
+
+
 # Training at the smoke size of the CPU parity tests (8 TPC-H queries, 6
 # configurations, GTN d_model 16, 1 layer).  TRAIN_STEP_RTOL is
 # test_torch_training.py's TRAJECTORY_LOSS_RTOL, which holds the host's
@@ -1012,7 +1076,8 @@ def _lm_steps(model, batches, accum):
     return np.array(rows), params, state
 
 
-@pytest.mark.parametrize("arch", ["glm4-9b", "minicpm-2b"])
+@pytest.mark.parametrize("arch", ["glm4-9b", "minicpm-2b",
+                                  "moonshot-v1-16b-a3b"])
 def test_lm_train_steps_on_card_match_host(cuda_device, arch):
     """5 float32 smoke steps with accum 2 from one start: losses, learning
     rates and gradient norms within LM_TRAJECTORY_RTOL of the host's, and
