@@ -36,7 +36,7 @@ default model and solver widths:
   of 16) and the 22 TPC-H queries on the oracle backend, then the TPC-H
   loop on the trained ``subq`` and ``qs``, each on the card and again on
   the host; then the cluster autotuner (``cluster``): ``autotune`` for
-  the four ported configurations × the shape cells each supports × the
+  the eight ported configurations × the shape cells each supports × the
   example's five preferences, on the card and on the host, with the
   H100 figures of ``cluster/costmodel.py``; beside it one bf16 product at
   qwen2-72b's FFN shape against the cost model's ``TC_EFF``, and
@@ -57,6 +57,19 @@ default model and solver widths:
   route with its routing replayed and with the same next tokens; one
   layer's dispatch share, and the smoke MoE model on the card against
   the host (forward, prefill and decode, a train step);
+* SSM serving (``ssm``): ``rwkv6-1.6b`` at full width and depth (1.58 B
+  parameters) served as ``lm`` is on the default ``scan`` route (no
+  attention, so no K4 launch), two scoring forwards bit-equal, the
+  ``chunked`` route's finite share reported, in float32 (batch 1) prefill
+  of 2048 tokens and 31 decode steps against one forward of the 2079
+  tokens, ``python -m repro_torch.launch.serve --arch rwkv6-1.6b --full``
+  once, and the smoke model on the card against the host;
+* the hybrid family (``hybrid``): the smoke ``jamba-1.5-large-398b`` in
+  float32 with ``use_flash`` (one K4 launch a group, the plain route and
+  the host against it, prefill and decode, a train step), then one
+  ``apply_mamba`` at jamba's full width (d_model 8192, din 16384) on 4 x
+  2048 bf16 tokens, timed against its bound, and in float32 at 1 x 2048
+  prefill and 31 single-token steps against one call on the 2079 tokens;
 * dense-LM training (``lm_train``): ``python -m repro_torch.launch.train``
   for 20 smoke steps, the reference's loss-falls test on the smoke
   glm4-9b, 5 float32 steps with gradient accumulation on the card held to
@@ -170,6 +183,7 @@ from repro_torch.kernels.pareto_filter.ref import (  # noqa: E402
 from repro_torch.kernels.ws_reduce import ops as ws_ops  # noqa: E402
 from repro_torch.kernels.ws_reduce.ref import (  # noqa: E402
     kept_normalised, runtime_pick_ref, ws_reduce_ref)
+from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.launch.shapes import SHAPES, cell_applicable  # noqa: E402
 from repro_torch.queryengine.aqe import (  # noqa: E402
@@ -228,7 +242,7 @@ KERNELS = [
      "source": "src/repro_torch/kernels/flash_attention/csrc/"
                "flash_attention_wgmma.cu",
      "replaces": "src/repro/kernels/flash_attention/kernel.py:86",
-     "paths": ("lm", "moe")},
+     "paths": ("lm", "moe", "hybrid")},
 ]
 MAIN_PATH_SHAPE = (256, 2)          # one Algorithm 1 bank: 256-row pool, k=2
 # (n, k, layout): "uniform" rows are mostly dominated within the first tile;
@@ -365,6 +379,29 @@ MOE_DRIFT_DEPTHS = (1, 2, 4, 8, 16)
 # MOE_HOST_ATOL (float32 sums in other orders; no routing tie at 1e-7).
 MOE_HOST_DECODE = 4
 MOE_HOST_ATOL = 1e-4
+# The SSM path: rwkv6-1.6b at full width and depth, bf16, served as the LM
+# path is (4 x 2048 prompts, 31 decode steps, 2080 slots) on the default
+# scan route.  In float32 with TF32 off, batch 1: prefill of LM_PROMPT
+# tokens and LM_GEN - 1 decode steps (the prompt's own next tokens) against
+# one cacheless forward of all of them, within the reference's own
+# prefill/decode tolerance (tests/test_archs.py:75).  The smoke model on
+# the card against the host within SSM_HOST_ATOL.
+SSM_ARCH = "rwkv6-1.6b"
+# Tokens of each prompt in the traced scoring forward (the scan's launches
+# grow with the prompt, and the card's busy share with them).
+SSM_TRACE_PROMPT = 128
+SSM_DECODE_ATOL = 1e-3
+SSM_HOST_ATOL = 1e-5
+# The hybrid path: the smoke jamba in float32 with use_flash (window 0: K4
+# once a group), its logits within LM_F32_ATOL of the plain route and,
+# card against host, within MOE_HOST_ATOL (its MoE layers are [moe]'s);
+# then one apply_mamba at jamba's full width on MAMBA_BATCH x LM_PROMPT
+# bf16 tokens, and in float32 at 1 x LM_PROMPT prefill then LM_GEN - 1
+# single-token steps through its state against one call on all the
+# tokens, within MAMBA_DECODE_ATOL.
+HYBRID_ARCH = "jamba-1.5-large-398b"
+MAMBA_BATCH = 4
+MAMBA_DECODE_ATOL = 1e-3
 # Performance-model training at the reference's fast TPC-H budget
 # (benchmarks/common.py's FAST: 3 variants of each template, 32
 # configurations a query; 1,500 steps of 512 rows for subq and qs, 500 of
@@ -421,7 +458,8 @@ TENANT_PREFS = [(0.9, 0.1), (0.7, 0.3), (0.5, 0.5), (0.2, 0.8), (0.1, 0.9)]
 # sequence).
 EXAMPLE_MODEL_RTOL = 1e-4
 CLUSTER_ARCHS = ("minicpm-2b", "deepseek-coder-33b", "glm4-9b", "qwen2-72b",
-                 "dbrx-132b", "moonshot-v1-16b-a3b")
+                 "dbrx-132b", "moonshot-v1-16b-a3b", "jamba-1.5-large-398b",
+                 "rwkv6-1.6b")
 CLUSTER_MATMUL_TOKENS = 4096
 # Dense-LM training.  The smoke run is the reference's
 # test_train_loss_decreases (glm4-9b's smoke configuration in bfloat16,
@@ -1765,9 +1803,27 @@ def generate(model, tokens: torch.Tensor, capacity: int, steps: int):
         out.append(nxt)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    if any(c["len"] != S + steps for c in cache):
+    if any(c["len"] != S + steps for c in attention_caches(cache)):
         raise AssertionError("a layer's cache holds the wrong length")
     return logits, torch.stack(out, 1), t1 - t0, t2 - t1, cache
+
+
+def attention_caches(cache) -> list:
+    """The KV caches among a model's per-layer caches: every layer's
+    (dense, moe), each group's attention layer's (hybrid), none (ssm)."""
+    return [c["attn"] if "attn" in c else c for c in cache
+            if "attn" in c or "len" in c]
+
+
+def flash_layers(cfg) -> int:
+    """K4 launches of one cacheless forward: one for each attention layer
+    without a window when ``use_flash`` (a hybrid model has one a group;
+    an SSM model none)."""
+    if not cfg.use_flash or cfg.window or cfg.family == "ssm":
+        return 0
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.attn_every
+    return cfg.n_layers
 
 
 def lm_logit_spread(model, cfg, device, batch: int = LM_BATCH,
@@ -1840,14 +1896,18 @@ def lm_logit_spread(model, cfg, device, batch: int = LM_BATCH,
 
 def serve_lm(device, cfg, path: str, batch: int = LM_BATCH,
              prompt: int = LM_PROMPT, gen: int = LM_GEN,
-             capacity: int = LM_CAPACITY) -> dict:
+             capacity: int = LM_CAPACITY, trace_prompt: int = 0) -> dict:
     """Serve ``cfg`` on the card as a user would: weights drawn from a
     seed, an untimed warm-up at 128 tokens, then, with the launch counts
     at 0, one prompt-scoring forward with the flash route (a launch per
-    layer, all on the body ``cfg.dtype`` and the head width call for) and
-    generation through the cache (no launch, as in the reference).  Then a
+    windowless attention layer, ``flash_layers``, all on the body
+    ``cfg.dtype`` and the head width call for) and generation through the
+    cache (no launch, as in the reference).  Then a
     traced scoring forward and decode step give the card's busy time and
-    top kernels.  Checks every launch rule, finite logits and tokens in
+    top kernels; with ``trace_prompt``, the traced forward scores only
+    that many tokens of each prompt, beside an untraced forward of the
+    same prefix (a trace of an SSM model's full scan, some 200,000
+    launches, costs minutes).  Checks every launch rule, finite logits and tokens in
     range; returns the model, its prompts, the scoring and prefill logits
     and the measured row.  ``path`` names the path in the logs and in
     KERNELS."""
@@ -1857,8 +1917,12 @@ def serve_lm(device, cfg, path: str, batch: int = LM_BATCH,
                         torch.Generator(device=device).manual_seed(0))
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
-    log(f"{tag} {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-        f"{cfg.n_heads}/{cfg.n_kv} heads of {cfg.head_dim}, d_ff {cfg.d_ff}"
+    log(f"{tag} {cfg.name} ({cfg.family}): {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, "
+        + (f"{cfg.d_model // cfg.rwkv_head_dim} RWKV heads of "
+           f"{cfg.rwkv_head_dim}" if cfg.family == "ssm" else
+           f"{cfg.n_heads}/{cfg.n_kv} heads of {cfg.head_dim}")
+        + f", d_ff {cfg.d_ff}"
         + (f", {cfg.n_experts} experts top-{cfg.top_k}"
            if cfg.family == "moe" else "")
         + f", vocab {cfg.vocab}, {cfg.dtype}, {n_params} parameters drawn "
@@ -1877,23 +1941,29 @@ def serve_lm(device, cfg, path: str, batch: int = LM_BATCH,
     score_s = time.perf_counter() - t0
     scoring_launches = flash_ops.LAUNCHES
     scoring_bodies = dict(flash_ops.LAUNCHES_BY_BODY)
-    if scoring_launches != cfg.n_layers:
+    want = flash_layers(cfg)
+    if scoring_launches != want:
         raise AssertionError(f"prompt scoring launched flash_attention "
-                             f"{scoring_launches} times for {cfg.n_layers} "
-                             "layers")
+                             f"{scoring_launches} times for {want} "
+                             "windowless attention layers")
     want_body = flash_ops._body(DTYPES[cfg.dtype], cfg.head_dim)
-    if scoring_bodies[want_body] != cfg.n_layers:
+    if scoring_bodies[want_body] != want:
         raise AssertionError(f"prompt scoring launched the bodies "
-                             f"{scoring_bodies}; all {cfg.n_layers} launches "
+                             f"{scoring_bodies}; all {want} launches "
                              f"must take the {want_body} body")
     pre_logits, generated, prefill_s, decode_s, cache = generate(
         model, tokens, capacity, gen - 1)
     launches = read_launches()
     # Device time of one more scoring forward and one more decode step
-    # (the cache has a free slot), against the untraced wall times above.
+    # (the cache has a free slot), against the untraced wall times.
+    traced = tokens[:, :trace_prompt] if trace_prompt else tokens
     with torch.no_grad():
+        if trace_prompt:
+            traced_ms = host_ms(lambda: model(traced, last_only=True), 1, 1)
+        else:
+            traced_ms = score_s * 1e3
         score_trace = device_breakdown(
-            lambda: model(tokens, last_only=True), top=LM_TOP)
+            lambda: model(traced, last_only=True), top=LM_TOP)
     pos = torch.full((batch, 1), prompt + gen - 1, device=device)
     step_trace = device_breakdown(lambda: make_serve_fns(model).decode(
         generated[:, -1:], cache, pos), top=LM_TOP)
@@ -1920,7 +1990,11 @@ def serve_lm(device, cfg, path: str, batch: int = LM_BATCH,
            "flash_launches_scoring_by_body": scoring_bodies,
            "flash_launches_generation": launches["flash_attention"]
            - scoring_launches,
+           "scoring_traced_prompt": traced.shape[1],
+           "scoring_traced_wall_ms": traced_ms,
            "scoring_device_busy_ms": score_trace["busy_ms"],
+           "scoring_kernel_launches": score_trace["kernel_launches"],
+           "decode_step_kernel_launches": step_trace["kernel_launches"],
            "decode_step_ms": decode_s / (gen - 1) * 1e3,
            "decode_step_device_busy_ms": step_trace["busy_ms"],
            "scoring_top_kernels": score_trace["top_kernels"],
@@ -1946,7 +2020,8 @@ def log_served(path: str, row: dict, batch: int, prompt: int, gen: int,
         f"steps, {row['decode_step_ms']:.3f} ms a step); peak memory "
         f"{row['max_memory_bytes']} bytes; card busy "
         f"{row['scoring_device_busy_ms']:.3f} ms of a "
-        f"{row['scoring_s'] * 1e3:.3f} ms scoring forward and "
+        f"{row['scoring_traced_wall_ms']:.3f} ms scoring forward ({batch} x "
+        f"{row['scoring_traced_prompt']}) and "
         f"{row['decode_step_device_busy_ms']:.3f} ms of a "
         f"{row['decode_step_ms']:.3f} ms decode step (profiler against "
         f"untraced wall time); sample {sample}")
@@ -2170,11 +2245,13 @@ def run_moe_path(device, cfg=None, batch: int = LM_BATCH,
     return {"launches": out["launches"], "row": row}
 
 
-def check_moe_against_host(device, arch: str = MOE_ARCH) -> dict:
-    """The smoke MoE model in float32 (TF32 off) on the card and, with the
-    same weights, on the host: the flash route's forward logits, prefill
-    and MOE_HOST_DECODE decode steps on the same tokens, and one train
-    step's loss and gradient norm, all within MOE_HOST_ATOL."""
+def check_smoke_against_host(device, arch: str = MOE_ARCH,
+                             atol: float = MOE_HOST_ATOL,
+                             tag: str = "[moe]") -> dict:
+    """A smoke model in float32 (TF32 off) on the card and, with the same
+    weights, on the host: the flash route's forward logits, prefill and
+    MOE_HOST_DECODE decode steps on the same tokens, and one train step's
+    loss and gradient norm (flash route off), all within ``atol``."""
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = get_smoke_config(arch, dtype="float32", use_flash=True)
     card = build_model(cfg, device,
@@ -2212,13 +2289,275 @@ def check_moe_against_host(device, arch: str = MOE_ARCH) -> dict:
         errs[f"train_{k}"] = abs(float(metrics["card"][k])
                                  - float(metrics["host"][k]))
     if not all(np.isfinite(list(errs.values()))) or \
-            max(errs.values()) > MOE_HOST_ATOL:
-        raise AssertionError(f"the smoke MoE model on the card differs from "
-                             f"the host's: {errs}")
-    log(f"[moe] smoke {arch} float32 on the card against the host (max "
-        f"|d|, atol {MOE_HOST_ATOL}): " + ", ".join(
+            max(errs.values()) > atol:
+        raise AssertionError(f"the smoke {arch} model on the card differs "
+                             f"from the host's: {errs}")
+    log(f"{tag} smoke {arch} float32 on the card against the host (max "
+        f"|d|, atol {atol}): " + ", ".join(
             f"{k} {v:.3g}" for k, v in errs.items()))
     return errs
+
+
+# ---------------------------------------------------------------------------
+# Phase 3a': the recurrent families (RWKV-6 served at full width, the jamba
+# smoke model and its Mamba block at full width)
+# ---------------------------------------------------------------------------
+
+def run_ssm_path(device, cfg=None, batch: int = LM_BATCH,
+                 prompt: int = LM_PROMPT, gen: int = LM_GEN,
+                 capacity: int = LM_CAPACITY) -> dict:
+    """SSM serving at full width and depth (``serve_lm`` on rwkv6-1.6b: no
+    attention, so no K4 launch), then on the same prompts a second scoring
+    forward, which must equal the first bit for bit, the scoring logits
+    against the prefill logits (the same scan, so the same next tokens),
+    and the ``chunked`` route's finite share (reported: the reference's is
+    0 at this width).  Then the float32 prefill/decode check, the serving
+    CLI at ``--full`` and the smoke model against the host."""
+    t_phase = time.perf_counter()
+    cfg = cfg or get_config(SSM_ARCH)
+    out = serve_lm(device, cfg, "ssm", batch, prompt, gen, capacity,
+                   trace_prompt=SSM_TRACE_PROMPT)
+    model, tokens, scores, row = (out["model"], out["tokens"], out["scores"],
+                                  out["row"])
+    pre = out["pre_logits"]
+    with torch.no_grad():
+        again, _ = model(tokens, last_only=True)
+        model.cfg = cfg.with_(rwkv_impl="chunked")
+        try:
+            chunked, _ = model(tokens, last_only=True)
+        finally:
+            model.cfg = cfg
+    if not torch.equal(again, scores):
+        raise AssertionError("two scoring forwards on the card gave "
+                             "different logits")
+    agree = float((scores[:, -1].argmax(-1) == pre[:, -1].argmax(-1))
+                  .float().mean())
+    if agree != 1.0:
+        raise AssertionError("scoring and prefill pick other next tokens")
+    # Bounds: the products of every weight but the embedding (a gather),
+    # 2·N·T; a decode step reads those weights and reads and writes the
+    # wkv state.
+    embed = model.embed
+    weights = sum(p.numel() * p.element_size() for p in model.parameters()) \
+        - embed.numel() * embed.element_size()
+    dh = cfg.rwkv_head_dim
+    state = cfg.n_layers * batch * (cfg.d_model // dh) * dh * dh * 4
+    flops = 2 * (row["n_params"] - embed.numel()) * batch * prompt
+    row.update(scoring_bit_equal_on_repeat=True,
+               scoring_vs_prefill_max_logit_diff=float(
+                   (scores.float() - pre.float()).abs().max()),
+               scoring_vs_prefill_next_token_agreement=agree,
+               chunked_finite_share=float(torch.isfinite(chunked).float()
+                                          .mean()),
+               scoring_bound_ms=bound_ms(0, flops, BF16_OPS_PER_S)[0],
+               decode_step_bound_ms=bound_ms(weights + 2 * state, 0)[0])
+    log_served("ssm", row, batch, prompt, gen,
+               out["generated"][0, :12].tolist())
+    launches = out["launches"]
+    del model, out, again, chunked, scores, pre
+    torch.cuda.empty_cache()
+    row["f32_prefill_decode_max_abs_err"] = check_ssm_decode_f32(device)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as text:
+        cli = serve_cli.main(["--arch", SSM_ARCH, "--full"])
+    lines = text.getvalue().strip().splitlines()
+    if cli.shape != (4, 16) or not ((0 <= cli) & (cli < cfg.vocab)).all():
+        raise AssertionError(f"the serving CLI generated {cli.shape} tokens "
+                             "or tokens out of range")
+    log(f"[ssm] python -m repro_torch.launch.serve --arch {SSM_ARCH} --full "
+        f"on the card ({time.perf_counter() - t0:.3f} s with the build): "
+        f"{lines[0]}")
+    torch.cuda.empty_cache()
+    row["host"] = check_smoke_against_host(device, SSM_ARCH, SSM_HOST_ATOL,
+                                           "[ssm]")
+    row["phase_s"] = time.perf_counter() - t_phase
+    log(f"[ssm] bounds: scoring {row['scoring_bound_ms']:.3f} ms ({flops:.4g} "
+        f"FLOP at {BF16_OPS_PER_S:.3g}/s), measured "
+        f"{row['scoring_s'] * 1e3:.3f} ms; a decode step "
+        f"{row['decode_step_bound_ms']:.3f} ms ({weights + 2 * state} bytes "
+        f"at {HBM_BYTES_PER_S:.3g}/s), measured {row['decode_step_ms']:.3f} "
+        f"ms; two scoring forwards bit-equal; scoring against prefill max "
+        f"|d| {row['scoring_vs_prefill_max_logit_diff']:.4g}; the chunked "
+        f"route's logits finite in a share {row['chunked_finite_share']:.4g}"
+        f"; phase {row['phase_s']:.3f} s")
+    return {"launches": launches, "row": row}
+
+
+def check_ssm_decode_f32(device, prompt: int = LM_PROMPT,
+                         steps: int = LM_GEN - 1) -> float:
+    """rwkv6-1.6b at full width and depth in float32 (TF32 off), one
+    request: prefill of ``prompt`` tokens and ``steps`` decode steps on the
+    prompt's own next tokens, against one cacheless forward of all of them,
+    within SSM_DECODE_ATOL."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(SSM_ARCH, dtype="float32")
+    model = build_model(cfg, device,
+                        torch.Generator(device=device).manual_seed(1))
+    tokens = lm_prompts(cfg.vocab, 1, prompt + steps, device, seed=5)
+    sf = make_serve_fns(model)
+    with torch.no_grad():
+        full, _ = model(tokens)
+    logits, cache = sf.prefill(tokens[:, :prompt],
+                               model.init_cache(1, prompt + steps))
+    rows = [logits[:, -1]]
+    for t in range(steps):
+        logits, cache = sf.decode(
+            tokens[:, prompt + t:prompt + t + 1], cache,
+            torch.full((1, 1), prompt + t, device=device))
+        rows.append(logits[:, -1])
+    err = float((torch.stack(rows, 1) - full[:, prompt - 1:]).abs().max())
+    if not (torch.isfinite(full).all() and err < SSM_DECODE_ATOL):
+        raise AssertionError(f"float32 prefill and decode differ from the "
+                             f"full forward by {err:.3g}")
+    log(f"[ssm] float32 at full width: prefill of {prompt} tokens and "
+        f"{steps} decode steps within {err:.3g} of one forward of the "
+        f"{prompt + steps} tokens (atol {SSM_DECODE_ATOL}; |logit| up to "
+        f"{float(full.abs().max()):.3g})")
+    return err
+
+
+def run_hybrid_path(device) -> dict:
+    """The smoke jamba in float32 (TF32 off) with ``use_flash``: with the
+    launch counts at 0, one scoring forward on the card, K4 once a group
+    (window 0), its logits within LM_F32_ATOL of the plain route's; then
+    the card against the host (``check_smoke_against_host``), one
+    ``apply_mamba`` at jamba's full width (``mamba_full_width``) and its
+    float32 state hand-over (``check_mamba_steps_f32``)."""
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_smoke_config(HYBRID_ARCH, dtype="float32", use_flash=True)
+    model = build_model(cfg, device,
+                        torch.Generator(device=device).manual_seed(3))
+    tokens = lm_prompts(cfg.vocab, 2, 48, device, seed=4)
+    reset_launches()
+    with torch.no_grad():
+        flash, _ = model(tokens)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    bodies = dict(flash_ops.LAUNCHES_BY_BODY)
+    require_launches("hybrid", launches)
+    if launches["flash_attention"] != flash_layers(cfg):
+        raise AssertionError(f"the hybrid scoring forward launched K4 "
+                             f"{launches['flash_attention']} times for "
+                             f"{flash_layers(cfg)} groups")
+    model.cfg = cfg.with_(use_flash=False)
+    with torch.no_grad():
+        plain, _ = model(tokens)
+    err = float((flash - plain).abs().max())
+    if not (torch.isfinite(flash).all() and err <= LM_F32_ATOL):
+        raise AssertionError(f"the hybrid flash and plain routes differ by "
+                             f"{err:.3g}")
+    log(f"[hybrid] smoke {HYBRID_ARCH} float32: {launches['flash_attention']}"
+        f" K4 launches in the scoring forward (bodies {bodies}), logits "
+        f"within {err:.3g} of the plain route's (atol {LM_F32_ATOL})")
+    del model
+    row = {"k4_launches_scoring": launches["flash_attention"],
+           "k4_launches_by_body": bodies, "flash_vs_plain_max_abs": err,
+           "host": check_smoke_against_host(device, HYBRID_ARCH,
+                                            MOE_HOST_ATOL, "[hybrid]")}
+    torch.cuda.empty_cache()
+    row["mamba_full_width"] = mamba_full_width(device)
+    torch.cuda.empty_cache()
+    row["mamba_f32_steps_max_abs_err"] = check_mamba_steps_f32(device)
+    torch.cuda.empty_cache()
+    row["phase_s"] = time.perf_counter() - t_phase
+    log(f"[hybrid] {json.dumps(row)}")
+    return {"launches": launches, "row": row}
+
+
+def mamba_full_width(device, batch: int = MAMBA_BATCH,
+                     length: int = LM_PROMPT) -> dict:
+    """One ``apply_mamba`` at jamba-1.5-large-398b's width (d_model 8192,
+    din 16384, N 16) on (batch, length) bf16 tokens, weights and inputs
+    from a seed: ms a call (events, after a warm-up), the card's busy time
+    and launches (profiler), peak memory, finite outputs; beside the bound
+    of its products and the traffic of the reference's materialised dA,
+    dBx and h_all."""
+    cfg = get_config(HYBRID_ARCH)
+    gen = torch.Generator(device=device).manual_seed(6)
+    p = arch_blocks.init_mamba(gen, cfg)
+    d, n = cfg.d_model, cfg.d_state
+    din, r = cfg.expand * d, max(d // 16, 1)
+    x = torch.randn((batch, length, d), generator=gen,
+                    device=device).to(torch.bfloat16)
+
+    def call():
+        return arch_blocks.apply_mamba(cfg, p, x)
+
+    with torch.no_grad():
+        call()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        y, st = call()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        if not (torch.isfinite(y).all() and torch.isfinite(st["h"]).all()):
+            raise AssertionError("non-finite Mamba outputs at full width")
+        del y, st
+        ms = time_cuda(call, 3, 1)
+        trace = device_breakdown(call, top=LM_TOP)
+    T = batch * length
+    flops = 2 * T * (d * 2 * din + din * (r + 2 * n) + r * din + din * d)
+    weights = sum(t.numel() * t.element_size() for t in p.values())
+    io = weights + 2 * x.numel() * x.element_size() \
+        + batch * din * (n * 4 + (cfg.d_conv - 1) * 2)
+    bound, by = bound_ms(io, flops, BF16_OPS_PER_S)
+    scan_bytes = 3 * T * din * n * 4
+    row = {"shape": [batch, length, d], "ms": ms,
+           "device_busy_ms": trace["busy_ms"],
+           "kernel_launches": trace["kernel_launches"],
+           "top_kernels": trace["top_kernels"], "max_memory_bytes": peak,
+           "memory_before_call_bytes": base, "bound_ms": bound,
+           "bound_by": by, "flops": flops,
+           "reference_scan_tensor_bytes": scan_bytes,
+           "reference_scan_tensor_ms": 2 * scan_bytes / HBM_BYTES_PER_S
+           * 1e3}
+    log(f"[hybrid] apply_mamba at {HYBRID_ARCH}'s width on {tuple(x.shape)} "
+        f"bf16: {ms:.3f} ms a call, the card busy {trace['busy_ms']:.3f} ms "
+        f"over {trace['kernel_launches']} launches, peak {peak} bytes "
+        f"({base} before the call); bound {bound:.3f} ms ({by}: "
+        f"{flops:.4g} FLOP of products); dA, dBx and h_all "
+        f"{scan_bytes} bytes, written and read back "
+        f"{row['reference_scan_tensor_ms']:.3f} ms at the HBM rate; top "
+        "kernels: " + "; ".join(f"{k} {v:.3f} ms x{c}"
+                                for k, v, c in trace["top_kernels"]))
+    return row
+
+
+def check_mamba_steps_f32(device, prompt: int = LM_PROMPT,
+                          steps: int = LM_GEN - 1) -> float:
+    """One Mamba block at jamba's full width in float32 (TF32 off), one
+    sequence: ``prompt`` tokens (the chunked route) then ``steps``
+    single-token calls through the returned state, against one call on
+    all of them (one scan over every token), outputs and final h within
+    MAMBA_DECODE_ATOL."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(HYBRID_ARCH, dtype="float32")
+    gen = torch.Generator(device=device).manual_seed(7)
+    p = arch_blocks.init_mamba(gen, cfg)
+    x = torch.randn((1, prompt + steps, cfg.d_model), generator=gen,
+                    device=device)
+    with torch.no_grad():
+        whole, ws = arch_blocks.apply_mamba(cfg, p, x)
+        y, st = arch_blocks.apply_mamba(cfg, p, x[:, :prompt])
+        parts = [y]
+        for t in range(prompt, prompt + steps):
+            y, st = arch_blocks.apply_mamba(cfg, p, x[:, t:t + 1], st)
+            parts.append(y)
+    err = float((torch.cat(parts, 1) - whole).abs().max())
+    h_err = float((st["h"] - ws["h"]).abs().max())
+    if not (torch.isfinite(whole).all()
+            and max(err, h_err) <= MAMBA_DECODE_ATOL):
+        raise AssertionError(f"the Mamba block's steps differ from one call "
+                             f"by {err:.3g} (h {h_err:.3g})")
+    log(f"[hybrid] apply_mamba float32 at full width: {prompt} tokens then "
+        f"{steps} single-token steps within {err:.3g} of one call on "
+        f"{prompt + steps} tokens (h within {h_err:.3g}; |y| up to "
+        f"{float(whole.abs().max()):.3g}, |h| up to "
+        f"{float(ws['h'].abs().max()):.3g}; atol {MAMBA_DECODE_ATOL})")
+    return max(err, h_err)
 
 
 # ---------------------------------------------------------------------------
@@ -3638,10 +3977,14 @@ def main() -> int:
         MOE_ARCH, n_layers=MOE_CHECK_LAYERS, dtype="float32",
         use_flash=True))
     torch.cuda.empty_cache()
-    check_moe_against_host(device)
+    check_smoke_against_host(device)
     check_lm_flash_against_plain(device)
     torch.cuda.empty_cache()
     check_lm_against_host(device)
+    torch.cuda.empty_cache()
+    ssm_path = run_ssm_path(device)
+    torch.cuda.empty_cache()
+    hybrid_path = run_hybrid_path(device)
     torch.cuda.empty_cache()
     lm_train_path = run_lm_train_path(device)
     paths = {"compile": compile_path["launches"],
@@ -3656,12 +3999,16 @@ def main() -> int:
              "cluster": cluster_path["launches"],
              "lm": lm_path["launches"],
              "moe": moe_path["launches"],
+             "ssm": ssm_path["launches"],
+             "hybrid": hybrid_path["launches"],
              "lm_train": lm_train_path["launches"]}
     kernels = []
     entries["flash_attention"]["lm_launches_by_body"] = \
         lm_path["row"]["flash_launches_scoring_by_body"]
     entries["flash_attention"]["moe_launches_by_body"] = \
         moe_path["row"]["flash_launches_scoring_by_body"]
+    entries["flash_attention"]["hybrid_launches_by_body"] = \
+        hybrid_path["row"]["k4_launches_by_body"]
     for k in KERNELS:
         e = dict(entries[k["name"]])
         by_path = {p: paths[p][k["name"]] for p in paths}

@@ -1,13 +1,15 @@
-"""Transformer blocks of the dense and MoE families: attention (GQA +
-RoPE), the SwiGLU MLP and the top-k capacity MoE MLP, cache-aware.
+"""Blocks of the dense, MoE, hybrid and SSM families: attention (GQA +
+RoPE), the SwiGLU MLP, the top-k capacity MoE MLP, the Mamba (S6)
+selective scan and RWKV-6's time and channel mix, cache-aware.
 
-The counterpart of the reference's ``archs/blocks.py`` for what the dense
-and MoE families run.  Conventions:
+The counterpart of the reference's ``archs/blocks.py`` for what those
+families run.  Conventions:
 
 * ``init_*`` returns the parameter dict of ONE layer, drawn from an
   explicit ``torch.Generator``; the model wraps it in a module.
-* ``apply_*`` take ``(cfg, params, x, ...)`` and, for attention, an
-  optional per-layer cache; they return ``(y, new_cache)``.
+* ``apply_*`` take ``(cfg, params, x, ...)`` and, for attention, Mamba
+  and the RWKV time mix, an optional per-layer cache or state; they
+  return ``(y, new_cache)``.
 * A cache holds fixed-capacity buffers and a scalar ``len``.  The port
   writes new entries into the buffers in place (the reference's serving
   functions donate the cache, so the old one is never read again) and
@@ -16,8 +18,11 @@ and MoE families run.  Conventions:
   flash-attention kernel on the cacheless forward when ``cfg.use_flash``.
 
 The reference's activation-sharding constraints are no-ops without a mesh
-and are dropped.  Cross-attention (the audio family), Mamba and RWKV
-blocks come with the slices that port those families.
+and are dropped.  Cross-attention (the audio family) comes with the slice
+that ports that family.  The recurrent blocks keep the reference's
+semantics, which are not the published models': RWKV-6 has no bonus
+``u`` term and its output at step t reads the state before token t's
+kᵀv; Mamba materialises its (B, S, din, N) float32 decays and inputs.
 """
 from __future__ import annotations
 
@@ -36,7 +41,9 @@ NEG = -1e30
 
 __all__ = ["init_attention", "apply_attention", "init_mlp", "apply_mlp",
            "init_moe", "apply_moe", "moe_capacity", "moe_gates",
-           "moe_route", "MoeRoute"]
+           "moe_route", "MoeRoute", "init_mamba", "apply_mamba",
+           "init_rwkv", "apply_rwkv_time", "apply_rwkv_channel",
+           "rwkv_wkv_chunked"]
 
 
 # ---------------------------------------------------------------------------
@@ -394,3 +401,255 @@ def apply_moe(cfg: ArchConfig, p: Params, x: torch.Tensor,
             * w[:, :, j, None]
         out = y if out is None else out + y
     return out
+
+
+# ---------------------------------------------------------------------------
+# Mamba (S6 selective scan, chunked)
+# ---------------------------------------------------------------------------
+
+def init_mamba(gen: torch.Generator, cfg: ArchConfig) -> Params:
+    """One Mamba block: projections in ``cfg.dtype``, ``A_log`` = log(1..N)
+    per channel and ``D`` = 1 in float32, as the reference's."""
+    d = cfg.d_model
+    din = cfg.expand * d
+    n = cfg.d_state
+    dt_rank = max(d // 16, 1)
+    dt = DTYPES[cfg.dtype]
+    dev = gen.device
+    return {
+        "in_proj": init_dense(gen, (d, 2 * din), dt),
+        "conv_w": init_dense(gen, (din, cfg.d_conv), dt, scale=0.5),
+        "x_proj": init_dense(gen, (din, dt_rank + 2 * n), dt),
+        "dt_proj": init_dense(gen, (dt_rank, din), dt),
+        "A_log": torch.log(torch.arange(1, n + 1, dtype=torch.float32,
+                                        device=dev).repeat(din, 1)),
+        "D": torch.ones((din,), dtype=torch.float32, device=dev),
+        "out_proj": init_dense(gen, (din, d), dt,
+                               scale=1.0 / math.sqrt(din * 2 * cfg.n_layers)),
+    }
+
+
+def _selective_scan_chunk(A: torch.Tensor, Bx: torch.Tensor,
+                          h0: torch.Tensor
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """h_t = A_t ⊙ h_{t-1} + Bx_t over axis 1, as a log-depth scan.
+
+    A, Bx: (B, T, din, N) float32; h0: (B, din, N).  Returns (h_all,
+    h_last).  The reference calls ``jax.lax.associative_scan`` with the
+    combine (a1·a2, x2 + a2·x1); PyTorch has no such call, so this is the
+    Hillis–Steele form of the same scan (⌈log2 T⌉ steps, each combining
+    every element with the one ``shift`` before it).  The products are
+    taken in another tree than XLA's, so results agree within float32
+    rounding, not bit for bit.
+    """
+    aa, hh = A, Bx
+    T = A.shape[1]
+    shift = 1
+    while shift < T:
+        hh = torch.cat([hh[:, :shift],
+                        hh[:, shift:] + aa[:, shift:] * hh[:, :-shift]], 1)
+        aa = torch.cat([aa[:, :shift], aa[:, shift:] * aa[:, :-shift]], 1)
+        shift *= 2
+    h_all = hh + aa * h0[:, None]
+    return h_all, h_all[:, -1]
+
+
+def apply_mamba(cfg: ArchConfig, p: Params, x: torch.Tensor,
+                state: Optional[Params] = None, chunk: int = 256
+                ) -> Tuple[torch.Tensor, Params]:
+    """x: (B, S, D).  state: {"h": (B, din, N) float32, "conv": (B, k−1,
+    din)}, the scan's state and the conv's last k − 1 inputs.
+
+    As the reference: the depthwise causal conv sums its taps in order in
+    the model dtype; Δ = softplus(dt_in @ dt_proj) in float32, dA =
+    exp(Δ·A) and dBx = Δ·u·B materialised as (B, S, din, N) float32; with
+    S a multiple of ``chunk`` and more than one chunk, h is carried from
+    chunk to chunk and scanned within each, else one scan covers all of S
+    (decode, and prefills of other lengths).
+    """
+    B, S, d = x.shape
+    din = cfg.expand * d
+    n = cfg.d_state
+    dt_rank = max(d // 16, 1)
+    xs, z = torch.split(x @ p["in_proj"], din, dim=-1)       # (B, S, din)
+
+    kk = cfg.d_conv
+    if state is not None:
+        ctx = state["conv"]
+    else:
+        ctx = torch.zeros((B, kk - 1, din), dtype=xs.dtype, device=x.device)
+    xpad = torch.cat([ctx, xs], dim=1)
+    conv = xpad[:, 0:S] * p["conv_w"][:, 0]
+    for i in range(1, kk):
+        conv = conv + xpad[:, i:i + S] * p["conv_w"][:, i]
+    new_conv = xpad[:, -(kk - 1):] if kk > 1 else ctx
+    u = F.silu(conv)                                         # (B, S, din)
+
+    dt_in, Bc, Cc = torch.split(u @ p["x_proj"], [dt_rank, n, n], dim=-1)
+    delta = F.softplus(dt_in @ p["dt_proj"]).to(torch.float32)
+    A = -torch.exp(p["A_log"])                               # (din, N)
+    dA = torch.exp(delta[..., None] * A)                     # (B, S, din, N)
+    dBx = (delta * u.to(torch.float32))[..., None] \
+        * Bc.to(torch.float32)[..., None, :]                 # (B, S, din, N)
+
+    h0 = state["h"] if state is not None else torch.zeros(
+        (B, din, n), dtype=torch.float32, device=x.device)
+    n_chunks = max(S // chunk, 1)
+    if S % chunk == 0 and n_chunks > 1:
+        # Carry h across chunks sequentially; the scan within a chunk
+        # bounds its temporaries to (B, chunk, din, N).
+        h_last, parts = h0, []
+        for c in range(0, S, chunk):
+            h_c, h_last = _selective_scan_chunk(dA[:, c:c + chunk],
+                                                dBx[:, c:c + chunk], h_last)
+            parts.append(h_c)
+        h_all = torch.cat(parts, dim=1)
+    else:
+        h_all, h_last = _selective_scan_chunk(dA, dBx, h0)
+
+    y = torch.einsum("bsdn,bsn->bsd", h_all, Cc.to(torch.float32))
+    y = y + u.to(torch.float32) * p["D"]
+    y = (y.to(x.dtype) * F.silu(z)) @ p["out_proj"]
+    return y, {"h": h_last, "conv": new_conv}
+
+
+# ---------------------------------------------------------------------------
+# RWKV6 (Finch): data-dependent decay linear attention + channel mix
+# ---------------------------------------------------------------------------
+
+def init_rwkv(gen: torch.Generator, cfg: ArchConfig) -> Params:
+    """One RWKV-6 layer's time and channel mix.  ``w_proj`` is drawn at
+    the reference's absolute scale of 0.1, ``w_bias`` is −2 in float32,
+    the ``mu_*`` token-shift mixes are 0.5 in ``cfg.dtype``."""
+    d, f = cfg.d_model, cfg.d_ff
+    dt = DTYPES[cfg.dtype]
+    dev = gen.device
+    half = torch.full((d,), 0.5, dtype=dt, device=dev)
+    return {
+        "r_proj": init_dense(gen, (d, d), dt),
+        "k_proj": init_dense(gen, (d, d), dt),
+        "v_proj": init_dense(gen, (d, d), dt),
+        "g_proj": init_dense(gen, (d, d), dt),
+        "w_proj": init_dense(gen, (d, d), dt, scale=0.1),
+        "w_bias": torch.full((d,), -2.0, dtype=torch.float32, device=dev),
+        "o_proj": init_dense(gen, (d, d), dt,
+                             scale=1.0 / math.sqrt(d * 2 * cfg.n_layers)),
+        "mu_r": half,
+        "mu_k": half.clone(),
+        "mu_v": half.clone(),
+        "mu_w": half.clone(),
+        "ck_proj": init_dense(gen, (d, f), dt),
+        "cv_proj": init_dense(gen, (f, d), dt,
+                              scale=1.0 / math.sqrt(f * 2 * cfg.n_layers)),
+    }
+
+
+def apply_rwkv_time(cfg: ArchConfig, p: Params, x: torch.Tensor,
+                    state: Optional[Params] = None
+                    ) -> Tuple[torch.Tensor, Params]:
+    """RWKV-6 time mix.  x: (B, S, D).
+
+    state: {"S": (B, H, Dh, Dh) float32 wkv state, "x_prev": (B, 1, D) in
+    the model dtype}.  The matrix state accumulates kᵀv under a per-channel
+    decay w_t = exp(−exp(mix_w @ w_proj + w_bias)) (float32).  The output at
+    step t reads the state before token t's kᵀv, and there is no bonus term.
+
+    Route, as the reference chooses it: ``cfg.rwkv_impl == "chunked"`` with
+    S > 1 a multiple of ``cfg.rwkv_chunk`` takes :func:`rwkv_wkv_chunked`;
+    everything else the step-by-step scan, a Python loop of four ops a
+    token.
+    """
+    B, S, d = x.shape
+    dh = cfg.rwkv_head_dim
+    H = d // dh
+    x_prev = state["x_prev"] if state is not None else torch.zeros(
+        (B, 1, d), dtype=x.dtype, device=x.device)
+    xs = torch.cat([x_prev, x[:, :-1]], dim=1)               # token shift
+
+    def mix(mu):
+        return x + (xs - x) * mu
+    r = (mix(p["mu_r"]) @ p["r_proj"]).reshape(B, S, H, dh)
+    k = (mix(p["mu_k"]) @ p["k_proj"]).reshape(B, S, H, dh)
+    v = (mix(p["mu_v"]) @ p["v_proj"]).reshape(B, S, H, dh)
+    g = F.silu(x @ p["g_proj"])
+    w = torch.exp(-torch.exp((mix(p["mu_w"]) @ p["w_proj"]).to(torch.float32)
+                             + p["w_bias"]))                 # (B, S, D) decay
+    w = w.reshape(B, S, H, dh)
+
+    S0 = state["S"] if state is not None else torch.zeros(
+        (B, H, dh, dh), dtype=torch.float32, device=x.device)
+    kf, vf, rf = (t.to(torch.float32) for t in (k, v, r))
+
+    if cfg.rwkv_impl == "chunked" and S > 1 and S % cfg.rwkv_chunk == 0:
+        y, S_last = rwkv_wkv_chunked(w, kf, vf, rf, S0, chunk=cfg.rwkv_chunk)
+        y = y.reshape(B, S, d)
+    else:
+        # Time-major copies, so each step reads contiguous (B, H, dh) rows.
+        wt, kt, vt, rt = (t.transpose(0, 1).contiguous()
+                          for t in (w, kf, vf, rf))
+        S_last, ys = S0, []
+        for t in range(S):
+            ys.append(torch.einsum("bhk,bhkv->bhv", rt[t], S_last))
+            S_last = S_last * wt[t][..., None] \
+                + kt[t][..., None] * vt[t][..., None, :]
+        y = torch.stack(ys, dim=1).reshape(B, S, d)
+    y = (y.to(x.dtype) * g) @ p["o_proj"]
+    return y, {"S": S_last, "x_prev": x[:, -1:]}
+
+
+def apply_rwkv_channel(cfg: ArchConfig, p: Params, x: torch.Tensor
+                       ) -> torch.Tensor:
+    """RWKV-6 channel mix as the reference has it: relu(x @ ck)² @ cv."""
+    return torch.square(F.relu(x @ p["ck_proj"])) @ p["cv_proj"]
+
+
+def rwkv_wkv_chunked(w: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     r: torch.Tensor, S0: torch.Tensor, chunk: int = 64
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked-parallel WKV recurrence (the GLA form of the time mix).
+
+    Within a chunk of C steps the decay-weighted interactions become two
+    products through log-space decay rescaling; the matrix state is
+    carried only across chunk boundaries.  As the reference writes it:
+    ``log(clip(w, 1e-12, 1))``, the inclusive cumulative sum L, and
+    exp(−L) unguarded, so where L falls below about −88 the route
+    overflows float32 (rwkv6-1.6b's width does that on random weights,
+    and the reference's output is then not finite either).
+
+    w, k, v, r: (B, S, H, Dh) with w ∈ (0, 1); S0: (B, H, Dh, Dh).
+    Returns (out (B, S, H, Dh), S_last).
+    """
+    B, S, H, Dh = k.shape
+    C = min(chunk, S)
+    if S % C:
+        raise ValueError(f"sequence {S} is not a multiple of the chunk {C}")
+    n_chunks = S // C
+
+    def to_chunks(t):
+        return t.reshape(B, n_chunks, C, H, Dh).permute(1, 0, 3, 2, 4)
+    wc, kc, vc, rc = map(to_chunks, (w, k, v, r))      # (N, B, H, C, Dh)
+    logw = torch.log(torch.clamp(wc.to(torch.float32), 1e-12, 1.0))
+    # L[t] = Σ_{u≤t} log w_u within the chunk (inclusive).
+    L = torch.cumsum(logw, dim=3)
+    tri = torch.tril(torch.ones((C, C), dtype=torch.float32,
+                                device=k.device), diagonal=-1)
+    Sm, outs = S0, []
+    for c in range(n_chunks):
+        Lc = L[c]
+        kf, vf, rf = (t[c].to(torch.float32) for t in (kc, vc, rc))
+        # The state before the chunk decays through steps 1..t-1, a pair
+        # s < t within the chunk through s+1..t-1.
+        Lprev = torch.cat([torch.zeros_like(Lc[..., :1, :]), Lc[..., :-1, :]],
+                          dim=2)
+        r_dec = rf * torch.exp(Lprev)                 # (B, H, C, Dh)
+        k_dec = kf * torch.exp(-Lc)
+        att = torch.einsum("bhtd,bhsd->bhts", r_dec, k_dec) * tri
+        intra = torch.einsum("bhts,bhsd->bhtd", att, vf)
+        inter = torch.einsum("bhtd,bhdv->bhtv", r_dec, Sm)
+        outs.append(intra + inter)
+        # The state to the chunk's end: decay through the whole chunk.
+        Lend = Lc[..., -1:, :]
+        Sm = Sm * torch.exp(Lend[..., 0, :, None]) + torch.einsum(
+            "bhsd,bhsv->bhdv", kf * torch.exp(Lend - Lc), vf)
+    out = torch.stack(outs).permute(1, 0, 3, 2, 4).reshape(B, S, H, Dh)
+    return out, Sm

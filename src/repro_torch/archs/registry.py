@@ -2,10 +2,10 @@
 
 ``ARCH_IDS`` lists every architecture the reference knows; the port has
 the configurations and the models of the dense family (minicpm-2b,
-deepseek-coder-33b, glm4-9b, qwen2-72b) and the MoE family (dbrx-132b,
-moonshot-v1-16b-a3b).  The others (jamba-1.5-large-398b, rwkv6-1.6b,
-whisper-base, internvl2-76b) raise ``NotImplementedError`` until their
-family is ported.
+deepseek-coder-33b, glm4-9b, qwen2-72b), the MoE family (dbrx-132b,
+moonshot-v1-16b-a3b), the hybrid family (jamba-1.5-large-398b) and the
+SSM family (rwkv6-1.6b).  The others (whisper-base, internvl2-76b) raise
+``NotImplementedError`` until their family is ported.
 """
 from __future__ import annotations
 
@@ -34,7 +34,8 @@ ARCH_IDS: List[str] = [
 ]
 
 _PORTED = ("minicpm-2b", "deepseek-coder-33b", "glm4-9b", "qwen2-72b",
-           "dbrx-132b", "moonshot-v1-16b-a3b")
+           "dbrx-132b", "moonshot-v1-16b-a3b", "jamba-1.5-large-398b",
+           "rwkv6-1.6b")
 
 
 def _module(arch_id: str):

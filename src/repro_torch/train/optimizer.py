@@ -81,8 +81,7 @@ def opt_init(params: Mapping[str, torch.Tensor], cfg: OptConfig) -> Params:
 def _global_norm(grads: Mapping[str, torch.Tensor]) -> torch.Tensor:
     """√Σ g² in float32, summed in the reference's leaf order: its tree's
     sorted paths, each per-layer leaf's layers together."""
-    order = sorted(grads, key=lambda n: reference_key(n)[0]
-                   + (reference_key(n)[1] or 0,))
+    order = sorted(grads, key=reference_key)
     total = None
     for n in order:
         s = torch.sum(torch.square(grads[n].to(torch.float32)))

@@ -27,8 +27,10 @@ def make_serve_fns(model: LM) -> ServeFns:
     """``prefill(tokens, cache)`` → (last-position logits (B, 1, V), cache);
     ``decode(tokens (B, 1), cache, positions (B, 1))`` → (logits, cache).
 
-    The cache comes from ``model.init_cache(batch, max_len)``.  The prompt
-    goes through the cache path, so generation never launches the flash
+    The cache comes from ``model.init_cache(batch, max_len)``: KV caches,
+    and for the SSM and hybrid families the recurrent states, which are
+    returned anew each call (RWKV reads no positions).  The prompt goes
+    through the cache path, so generation never launches the flash
     kernel, as in the reference.
     """
     def prefill(tokens, cache):

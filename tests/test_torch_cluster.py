@@ -7,13 +7,16 @@ packages evaluate the same closed forms on the same numbers and are held
 exactly:
 
 * ``ClusterCostModel.stage_eval`` on random unit θ, every block, for the
-  10 configurations × 4 shape cells (the four configurations whose family
+  10 configurations × 4 shape cells (the two configurations whose family
   is not ported are carried across field for field; dbrx-132b and
-  moonshot-v1-16b-a3b, ported, take the MoE branches);
+  moonshot-v1-16b-a3b, ported, take the MoE branches, jamba-1.5-large-398b
+  and rwkv6-1.6b, ported, the hybrid and SSM ones);
 * ``autotune``'s launch plans (θ dicts, prediction, front) and
   ``summary()`` with the solve time masked, for the 10 configurations × 3
   weights, on the float64 host route and, for one configuration, with the
-  kernel route forced on both sides (both compare in float32);
+  kernel route forced on both sides (both compare in float32); the
+  ported MoE, hybrid and SSM configurations also from ``autotune``'s own
+  ``get_config``, the recurrent ones at their ``long_500k`` cell too;
 * ``StepAdapter``'s recommendations and estimates, step by step;
 * the shape cells' input specs: the reference's ``ShapeDtypeStruct`` and
   the port's ``meta`` tensors, shape and dtype.
@@ -45,7 +48,8 @@ from repro_torch.core.moo import pareto as port_pareto
 from repro_torch.launch import shapes as port_shapes
 
 PORTED = ("minicpm-2b", "deepseek-coder-33b", "glm4-9b", "qwen2-72b",
-          "dbrx-132b", "moonshot-v1-16b-a3b")
+          "dbrx-132b", "moonshot-v1-16b-a3b", "jamba-1.5-large-398b",
+          "rwkv6-1.6b")
 WEIGHTS = [(0.95, 0.05), (0.5, 0.5), (0.05, 0.95)]
 CLUSTER_SRC = pathlib.Path(port_costmodel.__file__).parent
 
@@ -95,7 +99,21 @@ def test_h100_figures_and_no_tpu_figure():
 
 def test_unported_family_still_raises():
     with pytest.raises(NotImplementedError, match="item 13"):
-        port_autotune.autotune("jamba-1.5-large-398b", device="cpu")
+        port_autotune.autotune("whisper-base", device="cpu")
+
+
+@pytest.mark.parametrize("shape", ["train_4k", "decode_32k", "long_500k"])
+@pytest.mark.parametrize("arch", ["jamba-1.5-large-398b", "rwkv6-1.6b"])
+def test_recurrent_autotune_takes_its_own_config(arch, shape, monkeypatch):
+    """``get_config`` serves the hybrid and SSM families, so ``autotune``
+    plans them without ``arch_cfg``, as the reference does, and both
+    support ``long_500k``."""
+    assert port_shapes.cell_applicable(get_config(arch), "long_500k")
+    pin_reference_figures(monkeypatch)
+    want = ref_autotune.autotune(arch, shape, weights=(0.5, 0.5))
+    got = port_autotune.autotune(arch, shape, weights=(0.5, 0.5),
+                                 device="cpu")
+    _assert_plans_equal(got, want)
 
 
 @pytest.mark.parametrize("arch", ["dbrx-132b", "moonshot-v1-16b-a3b"])

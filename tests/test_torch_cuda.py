@@ -17,6 +17,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.archs import blocks as arch_blocks
 from repro_torch.archs.registry import (build_model, get_config,
                                         get_smoke_config)
 from repro_torch.data.pipeline import data_iterator as lm_data_iterator
@@ -782,6 +783,80 @@ def test_flash_attention_at_the_moe_shape(cuda_device):
     _assert_within_scaled_tol(got, q, k, v, True)
 
 
+@pytest.mark.parametrize("arch,k4", [("rwkv6-1.6b", 0),
+                                     ("jamba-1.5-large-398b", 2)])
+def test_smoke_recurrent_card_matches_host(cuda_device, arch, k4):
+    """The smoke SSM and hybrid models with ``use_flash`` on the card against
+    the same weights on the host, float32 with TF32 off: the forward's
+    logits (K4 once a windowless attention layer: none for RWKV, one a
+    jamba group), then prefill and 4 decode steps, within atol 1e-4."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_smoke_config(arch, dtype="float32", use_flash=True)
+    card = build_model(cfg, cuda_device)
+    host = build_model(cfg, "cpu")
+    host.load_state_dict({k: t.cpu() for k, t in card.state_dict().items()})
+    tokens = torch.from_numpy(
+        np.random.default_rng(2).integers(0, cfg.vocab, (2, 48)))
+    before = flash_ops.LAUNCHES
+    got, _ = card(tokens)
+    torch.cuda.synchronize()
+    assert flash_ops.LAUNCHES == before + k4
+    want, _ = host(tokens)
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=0)
+    sides = []
+    for m in (card, host):
+        sf = make_lm_serve_fns(m)
+        cache = m.init_cache(2, 44)
+        logits, cache = sf.prefill(tokens[:, :40].to(m.device), cache)
+        out = [logits.cpu()]
+        for t in range(4):
+            logits, cache = sf.decode(tokens[:, 40 + t:41 + t].to(m.device),
+                                      cache, torch.full((2, 1), 40 + t,
+                                                        device=m.device))
+            out.append(logits.cpu())
+        sides.append(torch.cat(out, 1))
+    torch.testing.assert_close(sides[0], sides[1], atol=1e-4, rtol=0)
+
+
+def test_rwkv_scoring_is_bit_reproducible_on_card(cuda_device):
+    """Two bfloat16 scoring forwards of an RWKV-6 model (d_model 512, 4 x
+    256 tokens, the scan route) give bit-equal logits."""
+    cfg = get_smoke_config("rwkv6-1.6b", d_model=512)
+    model = build_model(cfg, cuda_device)
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab, (4, 256))).to(cuda_device)
+    with torch.no_grad():
+        a, _ = model(tokens)
+        b, _ = model(tokens)
+    assert a.dtype == torch.bfloat16 and torch.isfinite(a).all()
+    assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+
+
+@pytest.mark.parametrize("S", [512, 100, 1])
+def test_apply_mamba_on_card_matches_host(cuda_device, S):
+    """One Mamba block (d_model 512, din 1024, N 16) in float32 with TF32
+    off from a given state: the chunked route (S = 512), one scan (S =
+    100) and a decode step on the card against the host, outputs and new
+    state within atol 1e-5."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_smoke_config("jamba-1.5-large-398b", dtype="float32",
+                           d_model=512)
+    p = arch_blocks.init_mamba(torch.Generator().manual_seed(S), cfg)
+    rng = np.random.default_rng(S)
+    x = torch.from_numpy(rng.normal(size=(2, S, 512)).astype(np.float32))
+    state = {"h": torch.from_numpy(rng.normal(size=(2, 1024, 16)).astype(
+                 np.float32)),
+             "conv": torch.from_numpy(rng.normal(size=(2, 3, 1024)).astype(
+                 np.float32))}
+    want, ws = arch_blocks.apply_mamba(cfg, p, x, state)
+    got, gs = arch_blocks.apply_mamba(
+        cfg, {k: v.to(cuda_device) for k, v in p.items()}, x.to(cuda_device),
+        {k: v.to(cuda_device) for k, v in state.items()})
+    torch.testing.assert_close(got.cpu(), want, atol=1e-5, rtol=0)
+    for k in ("h", "conv"):
+        torch.testing.assert_close(gs[k].cpu(), ws[k], atol=1e-5, rtol=0)
+
+
 # Training at the smoke size of the CPU parity tests (8 TPC-H queries, 6
 # configurations, GTN d_model 16, 1 layer).  TRAIN_STEP_RTOL is
 # test_torch_training.py's TRAJECTORY_LOSS_RTOL, which holds the host's
@@ -1077,7 +1152,8 @@ def _lm_steps(model, batches, accum):
 
 
 @pytest.mark.parametrize("arch", ["glm4-9b", "minicpm-2b",
-                                  "moonshot-v1-16b-a3b"])
+                                  "moonshot-v1-16b-a3b", "rwkv6-1.6b",
+                                  "jamba-1.5-large-398b"])
 def test_lm_train_steps_on_card_match_host(cuda_device, arch):
     """5 float32 smoke steps with accum 2 from one start: losses, learning
     rates and gradient norms within LM_TRAJECTORY_RTOL of the host's, and

@@ -195,8 +195,7 @@ def test_launch_train_on_host(tmp_path, capsys):
     assert latest_step(str(tmp_path)) == 6
     assert sorted(os.listdir(tmp_path)) == ["LATEST", "step_3", "step_6"]
     with pytest.raises(NotImplementedError, match="not ported"):
-        port_launch.main(["--arch", "jamba-1.5-large-398b", "--device",
-                          "cpu"])
+        port_launch.main(["--arch", "whisper-base", "--device", "cpu"])
 
 
 def test_train_lm_example_on_host(capsys):
