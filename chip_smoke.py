@@ -36,7 +36,7 @@ default model and solver widths:
   of 16) and the 22 TPC-H queries on the oracle backend, then the TPC-H
   loop on the trained ``subq`` and ``qs``, each on the card and again on
   the host; then the cluster autotuner (``cluster``): ``autotune`` for
-  the eight ported configurations × the shape cells each supports × the
+  the ten configurations × the shape cells each supports × the
   example's five preferences, on the card and on the host, with the
   H100 figures of ``cluster/costmodel.py``; beside it one bf16 product at
   qwen2-72b's FFN shape against the cost model's ``TC_EFF``, and
@@ -50,7 +50,7 @@ default model and solver widths:
   (28.1 B parameters, 64 experts top-6) served as ``lm`` is, with the
   routing of every layer recorded (token-slots dropped by capacity, top-k
   sets on which the flash and plain routes differ), two scoring forwards
-  bit-equal, the flash route's logits within ``MOE_LOGIT_GATE`` times
+  bit-equal, the flash route's logits within ``LOGIT_SPREAD_GATE`` times
   SDPA's spread of the plain route's (next tokens reported: on random
   weights routing flips cascade and every attention route ends with
   other tokens), at 4 float32 layers within ``LM_F32_ATOL`` of the plain
@@ -70,6 +70,19 @@ default model and solver widths:
   ``apply_mamba`` at jamba's full width (d_model 8192, din 16384) on 4 x
   2048 bf16 tokens, timed against its bound, and in float32 at 1 x 2048
   prefill and 31 single-token steps against one call on the 2079 tokens;
+* the audio family (``audio``): ``whisper-base`` at full width and depth
+  (6 encoder and 6 decoder layers, 0.11 B parameters) in bfloat16 with
+  the flash route, 16 clips of 1500 frames: one teacher-forced scoring
+  forward over 448 decoder tokens (K4 once an encoder layer,
+  non-causal, and once a decoder layer, causal) against the plain route,
+  then prefill of 32 tokens with the frames (K4 once an encoder layer)
+  and 31 decode steps; in float32 prefill and decode against one
+  forward, and the smoke model on the card against the host;
+* the VLM family (``vlm``): ``internvl2-76b`` at full width with 24 of
+  its 80 layers (45 GB of bf16 weights), the ``lm`` traffic behind 256
+  patch embeddings: scoring over 2304 positions (K4 once a layer) against
+  the prefill logits, generation from position 2304 in a 2336-slot
+  cache, peak memory under 75 GB, and the smoke model against the host;
 * dense-LM training (``lm_train``): ``python -m repro_torch.launch.train``
   for 20 smoke steps, the reference's loss-falls test on the smoke
   glm4-9b, 5 float32 steps with gradient accumulation on the card held to
@@ -242,7 +255,7 @@ KERNELS = [
      "source": "src/repro_torch/kernels/flash_attention/csrc/"
                "flash_attention_wgmma.cu",
      "replaces": "src/repro/kernels/flash_attention/kernel.py:86",
-     "paths": ("lm", "moe", "hybrid")},
+     "paths": ("lm", "moe", "hybrid", "audio", "vlm")},
 ]
 MAIN_PATH_SHAPE = (256, 2)          # one Algorithm 1 bank: 256-row pool, k=2
 # (n, k, layout): "uniform" rows are mostly dominated within the first tile;
@@ -295,17 +308,46 @@ FUSED_TILED = [(4, 40, 64, 2, 11), (3, 3, 2200, 2, 11), (3, 5, 900, 8, 6)]
 # in a cache of 2080 slots.
 LM_ARCH = "glm4-9b"
 LM_BATCH, LM_PROMPT, LM_GEN, LM_CAPACITY = 4, 2048, 32, 2080
+# The audio path: whisper-base at full width and depth, a batched
+# transcription request of AUDIO_BATCH clips of 1500 frames: one
+# teacher-forced scoring forward over AUDIO_SCORE decoder tokens (the real
+# model's decoder cap), then prefill of AUDIO_PROMPT tokens with the frames
+# and LM_GEN - 1 decode steps.
+AUDIO_ARCH = "whisper-base"
+AUDIO_BATCH, AUDIO_SCORE, AUDIO_PROMPT = 16, 448, 32
+# The VLM path: internvl2-76b at full width with its depth cut from 80 to
+# VLM_LAYERS layers (80 are 152 GB of bf16 weights; 24 are about 41 GB,
+# plus 4.2 GB of embedding and head, which leaves room for the plain
+# route's float32 logits), serving the LM path's traffic behind its 256
+# patches: a prompt with an image, in a cache of 256 + 2048 + 32 slots.
+VLM_ARCH = "internvl2-76b"
+VLM_LAYERS, VLM_PATCHES = 24, 256
 # flash_attention (B, Hq, Hkv, Sq, Skv, D, causal, dtype): the reference
 # kernel tests' six float32 shapes (CUDA-core body) and their bfloat16
 # case, the LM path's shape (glm4-9b at 4 × 2048 tokens), which is timed
 # for the table, a minicpm-2b-shaped case (36 heads of 64), the LM shape
 # in float16 and the MoE path's shape (moonshot-v1-16b-a3b at 4 × 2048
 # tokens, 16 heads of 128, Hq = Hkv), also timed for the table (all
-# tensor-core body).
+# tensor-core body); then the shapes of the audio and VLM paths, timed
+# too: whisper-base's encoder (non-causal over 1500 frames, 8 heads of 64,
+# Skv not a multiple of the 64-key tile) and its decoder's scoring forward
+# (causal over 448 tokens), and internvl2-76b's scoring forward (64/8
+# heads of 128 over 256 patches + 2048 tokens).
 FLASH_LM_SHAPE = (LM_BATCH, 32, 2, LM_PROMPT, LM_PROMPT, 128, True,
                   torch.bfloat16)
 FLASH_MOE_SHAPE = (LM_BATCH, 16, 16, LM_PROMPT, LM_PROMPT, 128, True,
                    torch.bfloat16)
+FLASH_AUDIO_ENC_SHAPE = (AUDIO_BATCH, 8, 8, 1500, 1500, 64, False,
+                         torch.bfloat16)
+FLASH_AUDIO_DEC_SHAPE = (AUDIO_BATCH, 8, 8, AUDIO_SCORE, AUDIO_SCORE, 64,
+                         True, torch.bfloat16)
+FLASH_VLM_SHAPE = (LM_BATCH, 64, 8, VLM_PATCHES + LM_PROMPT,
+                   VLM_PATCHES + LM_PROMPT, 128, True, torch.bfloat16)
+# The entry of the kernels line that holds each timed shape's numbers.
+FLASH_TIMED = {FLASH_MOE_SHAPE: "moe_shape",
+               FLASH_AUDIO_ENC_SHAPE: "audio_encoder_shape",
+               FLASH_AUDIO_DEC_SHAPE: "audio_decoder_shape",
+               FLASH_VLM_SHAPE: "vlm_shape"}
 FLASH_SHAPES = [(1, 4, 4, 128, 128, 64, True, torch.float32),
                 (2, 8, 2, 256, 256, 64, True, torch.float32),
                 (1, 4, 1, 100, 100, 128, True, torch.float32),
@@ -316,7 +358,8 @@ FLASH_SHAPES = [(1, 4, 4, 128, 128, 64, True, torch.float32),
                 FLASH_LM_SHAPE,
                 (1, 36, 36, 2048, 2048, 64, True, torch.bfloat16),
                 FLASH_LM_SHAPE[:-1] + (torch.float16,),
-                FLASH_MOE_SHAPE]
+                FLASH_MOE_SHAPE, FLASH_AUDIO_ENC_SHAPE,
+                FLASH_AUDIO_DEC_SHAPE, FLASH_VLM_SHAPE]
 # The profiler's name of each flash-attention body's kernel.
 FLASH_KERNEL_NAMES = {"wgmma": "flash_attention_wgmma_kernel",
                       "simt": "flash_attention_kernel"}
@@ -359,7 +402,7 @@ LM_TOP = 8
 # routes (K4's bodies, SDPA, the plain einsum route) end with unrelated
 # bf16 logits and next tokens (PERF.md, section 6).  So at full depth K4's
 # bf16 scoring logits may differ from the plain route's by at most
-# MOE_LOGIT_GATE times the largest difference that SDPA in K4's place
+# LOGIT_SPREAD_GATE times the largest difference that SDPA in K4's place
 # gives over LM_SPREAD_SEEDS (the factor 2 absorbs a heavy-tailed spread:
 # one more prompt set beats the largest of three with probability 1/4 for
 # two equally good routes); next tokens, and the same with K4's routing
@@ -370,7 +413,7 @@ LM_TOP = 8
 # routing replayed into it (so no rounding flips an expert), within
 # LM_F32_ATOL and with the same next tokens.
 MOE_ARCH = "moonshot-v1-16b-a3b"
-MOE_LOGIT_GATE = 2.0
+LOGIT_SPREAD_GATE = 2.0
 MOE_CHECK_LAYERS = 4
 # Depths at which the routes' drift is measured on the same weights.
 MOE_DRIFT_DEPTHS = (1, 2, 4, 8, 16)
@@ -402,6 +445,32 @@ SSM_HOST_ATOL = 1e-5
 HYBRID_ARCH = "jamba-1.5-large-398b"
 MAMBA_BATCH = 4
 MAMBA_DECODE_ATOL = 1e-3
+# The audio and VLM paths' checks.  On these random weights the run_lm_path
+# gate does not hold for them, nor for SDPA or the CUDA-core body in K4's
+# place: 24 layers of internvl2-76b at width 8192 move the bf16 logits by
+# 0.14-0.17 from the plain route's (LM_BF16_LOGIT_ATOL is 0.125), and
+# next tokens flip where the plain route's bf16 logits tie exactly
+# (whisper-base: one request of 16; PERF.md, section 6).  So, as on the
+# MoE path, K4's bf16 logits (each request's last position) may differ
+# from the plain route's by at most LOGIT_SPREAD_GATE times SDPA's largest
+# difference over LM_SPREAD_SEEDS, and K4's next token must be the plain
+# route's or within one bf16 rounding of it in the plain route's logits;
+# the LM_BF16_LOGIT_ATOL verdict is reported.  Agreement is held where it
+# is decided: K4 at these shapes against its plain version
+# (FLASH_SCALED_TOL), and the same configurations in float32 (whisper-base
+# at full depth, internvl2-76b at VLM_CHECK_LAYERS layers), K4 against the
+# plain route within LM_F32_ATOL with the same next tokens.  In float32 (TF32 off) the audio model's
+# prefill of AUDIO_PROMPT tokens with the frames and LM_GEN - 1 decode
+# steps are held within AUDIO_DECODE_ATOL of one forward (the reference's
+# own prefill/decode tolerance); the smoke models on the card within
+# AUDIO_HOST_ATOL and VLM_HOST_ATOL (the dense smoke models' card
+# tolerance) of the host; the VLM path's peak memory under
+# VLM_MAX_MEMORY bytes.
+AUDIO_DECODE_ATOL = 1e-3
+AUDIO_HOST_ATOL = 1e-5
+VLM_CHECK_LAYERS = 4
+VLM_MAX_MEMORY = 75e9
+VLM_HOST_ATOL = 1e-4
 # Performance-model training at the reference's fast TPC-H budget
 # (benchmarks/common.py's FAST: 3 variants of each template, 32
 # configurations a query; 1,500 steps of 512 rows for subq and qs, 500 of
@@ -459,7 +528,7 @@ TENANT_PREFS = [(0.9, 0.1), (0.7, 0.3), (0.5, 0.5), (0.2, 0.8), (0.1, 0.9)]
 EXAMPLE_MODEL_RTOL = 1e-4
 CLUSTER_ARCHS = ("minicpm-2b", "deepseek-coder-33b", "glm4-9b", "qwen2-72b",
                  "dbrx-132b", "moonshot-v1-16b-a3b", "jamba-1.5-large-398b",
-                 "rwkv6-1.6b")
+                 "rwkv6-1.6b", "whisper-base", "internvl2-76b")
 CLUSTER_MATMUL_TOKENS = 4096
 # Dense-LM training.  The smoke run is the reference's
 # test_train_loss_decreases (glm4-9b's smoke configuration in bfloat16,
@@ -1331,7 +1400,7 @@ def check_flash_attention(device) -> dict:
     within FLASH_ATOL (and FLASH_SCALED_TOL for 16-bit), then timed: the
     wrapper per call (events), the kernel alone (profiler), the plain
     version, SDPA, and the bound."""
-    worst, entry, moe_entry = 0.0, None, None
+    worst, entry, named = 0.0, None, {}
     for i, (B, Hq, Hkv, Sq, Skv, D, causal, dtype) in enumerate(FLASH_SHAPES):
         q, k, v = flash_case(B, Hq, Hkv, Sq, Skv, D, dtype, 400 + i, device)
         got = flash_ops.flash_attention(q, k, v, causal=causal)
@@ -1378,14 +1447,14 @@ def check_flash_attention(device) -> dict:
                  "body": body, "shape": [B, Hq, Hkv, Sq, Skv, D]}
         if FLASH_SHAPES[i] == FLASH_LM_SHAPE:
             entry = timed
-        elif FLASH_SHAPES[i] == FLASH_MOE_SHAPE:
-            moe_entry = timed
+        elif FLASH_SHAPES[i] in FLASH_TIMED:
+            named[FLASH_TIMED[FLASH_SHAPES[i]]] = timed
         del q, k, v, got, want, want32
     log(f"[kernels] flash_attention == plain version on {len(FLASH_SHAPES)} "
         f"cases (float32 within {FLASH_ATOL[torch.float32]}, bfloat16 and "
         f"float16 within {FLASH_ATOL[torch.bfloat16]} and within a + r|want| "
         f"of the float32 output: {FLASH_SCALED_TOL})")
-    return {"max_abs_err": worst, **entry, "moe_shape": moe_entry}
+    return {"max_abs_err": worst, **entry, **named}
 
 
 # ---------------------------------------------------------------------------
@@ -1774,24 +1843,39 @@ def run_hmooc2_path(device, model, n_queries: int = 32) -> dict:
             "aggregation_args": largest[0]}
 
 
-def lm_prompts(vocab: int, batch: int, length: int, device,
-               seed: int = 0) -> torch.Tensor:
-    """Token ids made with numpy from ``seed``."""
+def lm_inputs(cfg, batch: int, length: int, device, seed: int = 0):
+    """Token ids and, for the VLM and audio families, patch embeddings or
+    frames in float32 (else None), made with numpy from ``seed``: the
+    tokens first, then the patches, as ``launch/serve`` draws them."""
     rng = np.random.default_rng(seed)
-    return torch.from_numpy(rng.integers(0, vocab, (batch, length))).to(device)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (batch, length)))
+    rows = {"vlm": cfg.n_patches, "audio": cfg.enc_seq}.get(cfg.family)
+    patches = None if rows is None else torch.from_numpy(rng.normal(
+        0, 1, (batch, rows, cfg.d_model)).astype(np.float32)).to(device)
+    return tokens.to(device), patches
 
 
-def generate(model, tokens: torch.Tensor, capacity: int, steps: int):
-    """Prefill ``tokens`` into a cache of ``capacity`` slots through the
-    port's serving functions, then ``steps`` greedy decode steps.  Returns
-    the prefill logits, the generated tokens (B, steps + 1), the prefill and
-    decode wall times (s) and the cache."""
+def prefix_slots(cfg, patches) -> int:
+    """Cache slots that ``patches`` take ahead of the tokens: a VLM
+    model's patches; an audio model's frames take none."""
+    return patches.shape[1] if patches is not None and cfg.family == "vlm" \
+        else 0
+
+
+def generate(model, tokens: torch.Tensor, capacity: int, steps: int,
+             patches=None):
+    """Prefill ``tokens`` (behind ``patches``, or with the frames) into a
+    cache of ``capacity`` slots through the port's serving functions, then
+    ``steps`` greedy decode steps.  Returns the prefill logits, the
+    generated tokens (B, steps + 1), the prefill and decode wall times (s)
+    and the cache."""
     sf = make_serve_fns(model)
     B, S = tokens.shape
+    S += prefix_slots(model.cfg, patches)
     cache = model.init_cache(B, capacity)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    logits, cache = sf.prefill(tokens, cache)
+    logits, cache = sf.prefill(tokens, cache, patches)
     nxt = torch.argmax(logits[:, -1], -1)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
@@ -1810,7 +1894,10 @@ def generate(model, tokens: torch.Tensor, capacity: int, steps: int):
 
 def attention_caches(cache) -> list:
     """The KV caches among a model's per-layer caches: every layer's
-    (dense, moe), each group's attention layer's (hybrid), none (ssm)."""
+    (dense, moe, vlm), each group's attention layer's (hybrid), none (ssm),
+    every decoder layer's (audio)."""
+    if isinstance(cache, dict):
+        cache = cache["dec"]
     return [c["attn"] if "attn" in c else c for c in cache
             if "attn" in c or "len" in c]
 
@@ -1818,12 +1905,22 @@ def attention_caches(cache) -> list:
 def flash_layers(cfg) -> int:
     """K4 launches of one cacheless forward: one for each attention layer
     without a window when ``use_flash`` (a hybrid model has one a group;
-    an SSM model none)."""
+    an SSM model none; an audio model one an encoder and one a decoder
+    layer)."""
     if not cfg.use_flash or cfg.window or cfg.family == "ssm":
         return 0
     if cfg.family == "hybrid":
         return cfg.n_layers // cfg.attn_every
-    return cfg.n_layers
+    return cfg.n_layers + (cfg.enc_layers if cfg.family == "audio" else 0)
+
+
+def flash_prefill_layers(cfg) -> int:
+    """K4 launches of a prefill through the cache: an audio model encodes
+    the frames (one a windowless encoder layer when ``use_flash``); the
+    decoder, and every other family, attends through the cache."""
+    if cfg.family != "audio" or not cfg.use_flash or cfg.window:
+        return 0
+    return cfg.enc_layers
 
 
 def lm_logit_spread(model, cfg, device, batch: int = LM_BATCH,
@@ -1842,6 +1939,7 @@ def lm_logit_spread(model, cfg, device, batch: int = LM_BATCH,
         return flash_ops.flash_attention(q.float(), k.float(), v.float(),
                                          causal=causal).to(q.dtype)
 
+    want = flash_layers(cfg)
     routes = {"wgmma": (flash_ops.flash_attention, "wgmma"),
               "simt": (simt, "simt"),
               "sdpa": (lambda q, k, v, causal=True: sdpa(q, k, v, causal),
@@ -1850,20 +1948,20 @@ def lm_logit_spread(model, cfg, device, batch: int = LM_BATCH,
     rows = []
     try:
         for seed in LM_SPREAD_SEEDS:
-            tokens = lm_prompts(cfg.vocab, batch, prompt, device, seed)
+            tokens, patches = lm_inputs(cfg, batch, prompt, device, seed)
             with torch.no_grad():
                 model.cfg = cfg.with_(use_flash=False)
-                plain, _ = model(tokens, last_only=True)
+                plain, _ = model(tokens, patches, last_only=True)
                 model.cfg = cfg
                 row = {"seed": seed,
                        "max_abs_logit": float(plain.float().abs().max())}
                 for name, (fn, body) in routes.items():
                     arch_blocks.flash_attention = fn
                     before = dict(flash_ops.LAUNCHES_BY_BODY)
-                    got, _ = model(tokens, last_only=True)
+                    got, _ = model(tokens, patches, last_only=True)
                     torch.cuda.synchronize()
                     if body is not None and flash_ops.LAUNCHES_BY_BODY[body] \
-                            - before[body] != cfg.n_layers:
+                            - before[body] != want:
                         raise AssertionError(f"the {name} route did not take "
                                              f"the {body} body every layer")
                     if not torch.isfinite(got).all():
@@ -1896,13 +1994,18 @@ def lm_logit_spread(model, cfg, device, batch: int = LM_BATCH,
 
 def serve_lm(device, cfg, path: str, batch: int = LM_BATCH,
              prompt: int = LM_PROMPT, gen: int = LM_GEN,
-             capacity: int = LM_CAPACITY, trace_prompt: int = 0) -> dict:
+             capacity: int = LM_CAPACITY, trace_prompt: int = 0,
+             gen_prompt: int = 0, score_all: bool = False) -> dict:
     """Serve ``cfg`` on the card as a user would: weights drawn from a
     seed, an untimed warm-up at 128 tokens, then, with the launch counts
     at 0, one prompt-scoring forward with the flash route (a launch per
     windowless attention layer, ``flash_layers``, all on the body
-    ``cfg.dtype`` and the head width call for) and generation through the
-    cache (no launch, as in the reference).  Then a
+    ``cfg.dtype`` and the head width call for; the logits of every
+    position with ``score_all``, else of the last) and generation through
+    the cache on the first ``gen_prompt`` tokens of each prompt (0: all;
+    no launch, as in the reference, but an audio model's encoder's,
+    ``flash_prefill_layers``).  A VLM model's patches and an audio
+    model's frames (``lm_inputs``) go with every call.  Then a
     traced scoring forward and decode step give the card's busy time and
     top kernels; with ``trace_prompt``, the traced forward scores only
     that many tokens of each prompt, beside an untraced forward of the
@@ -1927,16 +2030,18 @@ def serve_lm(device, cfg, path: str, batch: int = LM_BATCH,
            if cfg.family == "moe" else "")
         + f", vocab {cfg.vocab}, {cfg.dtype}, {n_params} parameters drawn "
         f"on the card in {time.perf_counter() - t0:.2f} s")
-    tokens = lm_prompts(cfg.vocab, batch, prompt, device)
+    tokens, patches = lm_inputs(cfg, batch, prompt, device)
+    pre = prefix_slots(cfg, patches)
+    gen_tokens = tokens[:, :gen_prompt] if gen_prompt else tokens
     with torch.no_grad():
-        model(tokens[:, :128], last_only=True)
-    generate(model, tokens[:, :128], 136, 2)
+        model(tokens[:, :128], patches=patches, last_only=True)
+    generate(model, tokens[:, :128], 136 + pre, 2, patches)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     t0 = time.perf_counter()
     with torch.no_grad():
-        scores, _ = model(tokens, last_only=True)
+        scores, _ = model(tokens, patches=patches, last_only=not score_all)
     torch.cuda.synchronize()
     score_s = time.perf_counter() - t0
     scoring_launches = flash_ops.LAUNCHES
@@ -1952,27 +2057,30 @@ def serve_lm(device, cfg, path: str, batch: int = LM_BATCH,
                              f"{scoring_bodies}; all {want} launches "
                              f"must take the {want_body} body")
     pre_logits, generated, prefill_s, decode_s, cache = generate(
-        model, tokens, capacity, gen - 1)
+        model, gen_tokens, capacity, gen - 1, patches)
     launches = read_launches()
     # Device time of one more scoring forward and one more decode step
     # (the cache has a free slot), against the untraced wall times.
     traced = tokens[:, :trace_prompt] if trace_prompt else tokens
     with torch.no_grad():
-        if trace_prompt:
-            traced_ms = host_ms(lambda: model(traced, last_only=True), 1, 1)
-        else:
-            traced_ms = score_s * 1e3
-        score_trace = device_breakdown(
-            lambda: model(traced, last_only=True), top=LM_TOP)
-    pos = torch.full((batch, 1), prompt + gen - 1, device=device)
+        def score():
+            return model(traced, patches=patches, last_only=not score_all)
+        traced_ms = host_ms(score, 1, 1) if trace_prompt else score_s * 1e3
+        score_trace = device_breakdown(score, top=LM_TOP)
+    pos = torch.full((batch, 1), gen_tokens.shape[1] + pre + gen - 1,
+                     device=device)
     step_trace = device_breakdown(lambda: make_serve_fns(model).decode(
         generated[:, -1:], cache, pos), top=LM_TOP)
     del cache
     require_launches(path, launches)
-    if launches["flash_attention"] != scoring_launches:
-        raise AssertionError("generation launched the flash kernel")
+    prefill_launches = launches["flash_attention"] - scoring_launches
+    if prefill_launches != flash_prefill_layers(cfg):
+        raise AssertionError(f"generation launched the flash kernel "
+                             f"{prefill_launches} times; "
+                             f"{flash_prefill_layers(cfg)} expected")
     peak = torch.cuda.max_memory_allocated()
-    if scores.shape != (batch, 1, cfg.vocab) or \
+    score_rows = prompt if score_all else 1
+    if scores.shape != (batch, score_rows, cfg.vocab) or \
             not torch.isfinite(scores).all():
         raise AssertionError(f"bad scoring logits {tuple(scores.shape)}")
     if not torch.isfinite(pre_logits).all():
@@ -1988,8 +2096,7 @@ def serve_lm(device, cfg, path: str, batch: int = LM_BATCH,
            "decode_s": decode_s, "max_memory_bytes": peak,
            "flash_launches_scoring": scoring_launches,
            "flash_launches_scoring_by_body": scoring_bodies,
-           "flash_launches_generation": launches["flash_attention"]
-           - scoring_launches,
+           "flash_launches_generation": prefill_launches,
            "scoring_traced_prompt": traced.shape[1],
            "scoring_traced_wall_ms": traced_ms,
            "scoring_device_busy_ms": score_trace["busy_ms"],
@@ -2006,9 +2113,9 @@ def serve_lm(device, cfg, path: str, batch: int = LM_BATCH,
             f"ms busy, {trace['kernel_launches']} launches): "
             + "; ".join(f"{n} {ms:.3f} ms x{c}"
                         for n, ms, c in trace["top_kernels"]))
-    return {"model": model, "tokens": tokens, "scores": scores,
-            "pre_logits": pre_logits, "generated": generated,
-            "launches": launches, "row": row}
+    return {"model": model, "tokens": tokens, "patches": patches,
+            "scores": scores, "pre_logits": pre_logits,
+            "generated": generated, "launches": launches, "row": row}
 
 
 def log_served(path: str, row: dict, batch: int, prompt: int, gen: int,
@@ -2025,6 +2132,53 @@ def log_served(path: str, row: dict, batch: int, prompt: int, gen: int,
         f"{row['decode_step_device_busy_ms']:.3f} ms of a "
         f"{row['decode_step_ms']:.3f} ms decode step (profiler against "
         f"untraced wall time); sample {sample}")
+
+
+def check_within_spread(model, cfg, device, scores, plain, batch: int,
+                        prompt: int, tag: str) -> dict:
+    """K4's bf16 scoring logits (each request's last position; ``scores``
+    from the serving run against ``plain``, the plain route's on the same
+    inputs, and again over ``lm_logit_spread``'s prompt seeds) within
+    LOGIT_SPREAD_GATE times SDPA's largest difference from the plain
+    route, and K4's next token the plain route's or within one rounding
+    of it in the plain route's logits (bf16 logits tie: the first of two
+    equal values is the argmax).  Reported: the LM_BF16_LOGIT_ATOL
+    verdict, the next tokens' agreement and, where they differ, the plain
+    route's gap between its pick and K4's."""
+    last, plain_last = scores[:, -1].float(), plain[:, -1].float()
+    diff = float((last - plain_last).abs().max())
+    k4_next, plain_next = last.argmax(-1), plain_last.argmax(-1)
+    flipped = (k4_next != plain_next).nonzero().flatten().tolist()
+    gaps = [float(plain_last[i, plain_next[i]] - plain_last[i, k4_next[i]])
+            for i in flipped]
+    eps = torch.finfo(scores.dtype).eps
+    for i, gap in zip(flipped, gaps):
+        if gap > eps * float(plain_last[i, plain_next[i]].abs()):
+            raise AssertionError(f"request {i}: K4's next token is "
+                                 f"{gap:.4g} below the plain route's pick in "
+                                 "its logits, more than one rounding")
+    spread = lm_logit_spread(model, cfg, device, batch, prompt, tag)
+    sdpa_max = max(r["sdpa"] for r in spread["rows"])
+    k4_max = max([diff] + [r["wgmma"] for r in spread["rows"]])
+    gate = LOGIT_SPREAD_GATE * sdpa_max
+    if not (math.isfinite(k4_max) and k4_max <= gate):
+        raise AssertionError(f"K4's scoring logits differ from the plain "
+                             f"route's by {k4_max:.4g} > {LOGIT_SPREAD_GATE} "
+                             f"x SDPA's {sdpa_max:.4g}")
+    row = {"k4_vs_plain_bf16_max_logit_diff": diff,
+           "k4_vs_plain_max_over_seeds": k4_max,
+           "sdpa_max_logit_diff": sdpa_max, "logit_gate": gate,
+           "within_lm_bf16_logit_atol": diff <= LM_BF16_LOGIT_ATOL,
+           "next_token_agreement": 1 - len(flipped) / len(k4_next),
+           "flipped_requests_plain_gap": gaps, "logit_spread": spread}
+    log(f"{tag} K4 against the plain route: max |d| {diff:.4g} at the last "
+        f"positions ({'within' if row['within_lm_bf16_logit_atol'] else 'above'}"
+        f" LM_BF16_LOGIT_ATOL {LM_BF16_LOGIT_ATOL}; over the spread's seeds "
+        f"{k4_max:.4g}) against the gate {gate:.4g} ({LOGIT_SPREAD_GATE} x "
+        f"SDPA's {sdpa_max:.4g}); next tokens agree for "
+        f"{row['next_token_agreement']:.4f} of the requests; the plain "
+        f"route's gap between its pick and K4's where they differ: {gaps}")
+    return row
 
 
 def run_lm_path(device, cfg=None, batch: int = LM_BATCH,
@@ -2156,7 +2310,7 @@ def run_moe_path(device, cfg=None, batch: int = LM_BATCH,
     plain route's forward (the share of token-slots capacity drops, and
     of (layer, token) top-k sets the two routes pick differently, layer by
     layer); the plain route and SDPA again with the flash route's routing
-    replayed; the logit spread (MOE_LOGIT_GATE's gate); one layer's
+    replayed; the logit spread (LOGIT_SPREAD_GATE's gate); one layer's
     dispatch share; and the routes' drift at MOE_DRIFT_DEPTHS."""
     cfg = cfg or get_config(MOE_ARCH, use_flash=True)
     out = serve_lm(device, cfg, "moe", batch, prompt, gen, capacity)
@@ -2202,10 +2356,10 @@ def run_moe_path(device, cfg=None, batch: int = LM_BATCH,
     spread = lm_logit_spread(model, cfg, device, batch, prompt, "[moe]")
     sdpa_max = max(r["sdpa"] for r in spread["rows"])
     k4_max = max([diff] + [r["wgmma"] for r in spread["rows"]])
-    gate = MOE_LOGIT_GATE * sdpa_max
+    gate = LOGIT_SPREAD_GATE * sdpa_max
     if not k4_max <= gate:
         raise AssertionError(f"K4's scoring logits differ from the plain "
-                             f"route's by {k4_max:.4g} > {MOE_LOGIT_GATE} x "
+                             f"route's by {k4_max:.4g} > {LOGIT_SPREAD_GATE} x "
                              f"SDPA's {sdpa_max:.4g}")
     split = moe_dispatch_split(model, cfg, tokens)
     row["drift_by_depth"] = moe_drift_by_depth(model, cfg, tokens)
@@ -2236,7 +2390,7 @@ def run_moe_path(device, cfg=None, batch: int = LM_BATCH,
         + f"; scoring logits bit-equal on repeat")
     log(f"[moe] K4 against the plain route: max |d| {diff:.4g} (over the "
         f"spread's seeds {k4_max:.4g}) against the gate {gate:.4g} "
-        f"({MOE_LOGIT_GATE} x SDPA's {sdpa_max:.4g}); next tokens agree for "
+        f"({LOGIT_SPREAD_GATE} x SDPA's {sdpa_max:.4g}); next tokens agree for "
         f"{row['next_token_agreement']:.2f} of the requests; with K4's "
         f"routing replayed into the plain route: max |d| {replay_diff:.4g} "
         f"(SDPA's, replayed the same way, {sdpa_replay_diff:.4g}), next "
@@ -2250,29 +2404,37 @@ def check_smoke_against_host(device, arch: str = MOE_ARCH,
                              tag: str = "[moe]") -> dict:
     """A smoke model in float32 (TF32 off) on the card and, with the same
     weights, on the host: the flash route's forward logits, prefill and
-    MOE_HOST_DECODE decode steps on the same tokens, and one train step's
-    loss and gradient norm (flash route off), all within ``atol``."""
+    MOE_HOST_DECODE decode steps on the same tokens (and patches or
+    frames), and one train step's loss and gradient norm (flash route
+    off), all within ``atol``."""
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = get_smoke_config(arch, dtype="float32", use_flash=True)
     card = build_model(cfg, device,
                        torch.Generator(device=device).manual_seed(3))
     host = build_model(cfg, "cpu")
     host.load_state_dict({k: t.cpu() for k, t in card.state_dict().items()})
-    tokens = lm_prompts(cfg.vocab, 2, 48, "cpu", seed=4)
+    tokens, patches = lm_inputs(cfg, 2, 48, "cpu", seed=4)
+    pre = prefix_slots(cfg, patches)
+
+    def on(m, t):
+        return None if t is None else t.to(m.device)
+
     errs = {}
     with torch.no_grad():
-        errs["forward"] = float((card(tokens.to(device))[0].cpu()
-                                 - host(tokens)[0]).abs().max())
+        errs["forward"] = float((card(tokens.to(device), on(card, patches))[0]
+                                 .cpu() - host(tokens, patches)[0])
+                                .abs().max())
     sides = {}
     for name, m in (("card", card), ("host", host)):
         sf = make_serve_fns(m)
-        cache = m.init_cache(2, 40 + MOE_HOST_DECODE)
-        logits, cache = sf.prefill(tokens[:, :40].to(m.device), cache)
+        cache = m.init_cache(2, 40 + MOE_HOST_DECODE + pre)
+        logits, cache = sf.prefill(tokens[:, :40].to(m.device), cache,
+                                   on(m, patches))
         steps = [logits.cpu()]
         for t in range(MOE_HOST_DECODE):
             logits, cache = sf.decode(
                 tokens[:, 40 + t:41 + t].to(m.device), cache,
-                torch.full((2, 1), 40 + t, device=m.device))
+                torch.full((2, 1), 40 + pre + t, device=m.device))
             steps.append(logits.cpu())
         sides[name] = torch.cat(steps, 1)
     errs["prefill_decode"] = float((sides["card"] - sides["host"]).abs()
@@ -2394,7 +2556,7 @@ def check_ssm_decode_f32(device, prompt: int = LM_PROMPT,
     cfg = get_config(SSM_ARCH, dtype="float32")
     model = build_model(cfg, device,
                         torch.Generator(device=device).manual_seed(1))
-    tokens = lm_prompts(cfg.vocab, 1, prompt + steps, device, seed=5)
+    tokens, _ = lm_inputs(cfg, 1, prompt + steps, device, seed=5)
     sf = make_serve_fns(model)
     with torch.no_grad():
         full, _ = model(tokens)
@@ -2429,7 +2591,7 @@ def run_hybrid_path(device) -> dict:
     cfg = get_smoke_config(HYBRID_ARCH, dtype="float32", use_flash=True)
     model = build_model(cfg, device,
                         torch.Generator(device=device).manual_seed(3))
-    tokens = lm_prompts(cfg.vocab, 2, 48, device, seed=4)
+    tokens, _ = lm_inputs(cfg, 2, 48, device, seed=4)
     reset_launches()
     with torch.no_grad():
         flash, _ = model(tokens)
@@ -2558,6 +2720,198 @@ def check_mamba_steps_f32(device, prompt: int = LM_PROMPT,
         f"{float(whole.abs().max()):.3g}, |h| up to "
         f"{float(ws['h'].abs().max()):.3g}; atol {MAMBA_DECODE_ATOL})")
     return max(err, h_err)
+
+
+# ---------------------------------------------------------------------------
+# Phase 3a'': the audio and VLM families (whisper-base at full width and
+# depth, internvl2-76b's patch prefix at full width)
+# ---------------------------------------------------------------------------
+
+def audio_bounds(cfg, batch: int, score: int) -> dict:
+    """Bounds of the audio model's scoring forward over ``score`` decoder
+    tokens and one decode step, ``batch`` requests of ``cfg.enc_seq``
+    frames.  Operations, 2 a multiply-add: every weight on its rows (the
+    encoder's on the frames, the decoder's and the head's on the tokens,
+    the cross-attention's K/V projections on the frames in every decoder
+    layer, again at every decode step) and K4's pairs (all Se² in the
+    encoder, the causal half in the decoder) at the bf16 tensor-core
+    rate; the cross-attention's own products are float32 einsums, at the
+    float32 rate.  Scoring: the two times added, as the program runs them
+    one after another.  A decode step: its bf16 operations against the
+    bytes of the decoder's weights and of the encoder output its
+    cross-attention reads in every layer."""
+    d, h, dh, Se = cfg.d_model, cfg.n_heads, cfg.head_dim, cfg.enc_seq
+    attn = 2 * d * h * dh + 2 * d * cfg.n_kv * dh
+    mlp = 3 * d * cfg.d_ff
+    xattn = 4 * d * h * dh
+    enc_w = cfg.enc_layers * (attn + mlp)
+    dec_w = cfg.n_layers * (attn + mlp + xattn // 2) + d * cfg.vocab
+    xkv = cfg.n_layers * xattn // 2 * batch * Se
+    bf16 = (2 * (enc_w * batch * Se + dec_w * batch * score + xkv)
+            + 4 * dh * h * batch * (cfg.enc_layers * Se * Se
+                                    + cfg.n_layers * score * (score + 1) // 2))
+    f32 = 4 * dh * h * batch * cfg.n_layers * score * Se
+    step_ops = 2 * (dec_w * batch + xkv)
+    step_bytes = 2 * dec_w + cfg.n_layers * batch * Se * d * 2
+    return {"scoring_bf16_ops": bf16, "scoring_f32_ops": f32,
+            "scoring_bound_ms": (bf16 / BF16_OPS_PER_S
+                                 + f32 / FP32_OPS_PER_S) * 1e3,
+            "decode_step_bound_ms": bound_ms(step_bytes, step_ops,
+                                             BF16_OPS_PER_S)[0]}
+
+
+def run_audio_path(device, cfg=None, batch: int = AUDIO_BATCH,
+                   score: int = AUDIO_SCORE, prompt: int = AUDIO_PROMPT,
+                   gen: int = LM_GEN) -> dict:
+    """whisper-base at full width and depth served on a batched
+    transcription request (``serve_lm``): with the launch counts at 0, one
+    teacher-forced scoring forward over ``score`` decoder tokens of each
+    clip (K4 once an encoder layer, non-causal, and once a decoder layer,
+    causal, all on the tensor-core body), then prefill of ``prompt``
+    tokens with the frames (K4 once an encoder layer) and ``gen`` - 1
+    decode steps (none).  Then the scoring logits against the plain
+    route's on the same inputs (``check_within_spread``; the share of all
+    positions whose next token agrees is reported), the encoder alone
+    timed, the bounds, the float32 checks at full width and depth (flash
+    against plain; prefill and decode against one forward) and the smoke
+    model against the host."""
+    t_phase = time.perf_counter()
+    cfg = cfg or get_config(AUDIO_ARCH, use_flash=True)
+    out = serve_lm(device, cfg, "audio", batch, score, gen, prompt + gen,
+                   gen_prompt=prompt, score_all=True)
+    model, tokens, frames, scores, row = (out["model"], out["tokens"],
+                                          out["patches"], out["scores"],
+                                          out["row"])
+    model.cfg = cfg.with_(use_flash=False)
+    try:
+        with torch.no_grad():
+            plain, _ = model(tokens, frames)
+    finally:
+        model.cfg = cfg
+    every = float((scores.argmax(-1) == plain.argmax(-1)).float().mean())
+    every_diff = float((scores.float() - plain.float()).abs().max())
+    row.update(check_within_spread(model, cfg, device, scores, plain, batch,
+                                   score, "[audio]"))
+    with torch.no_grad():
+        encoder_ms = time_cuda(lambda: model.encode(frames), 5, 2)
+    row.update(every_position_agreement=every,
+               every_position_max_logit_diff=every_diff,
+               encoder_ms=encoder_ms, **audio_bounds(cfg, batch, score))
+    log_served("audio", row, batch, score, gen,
+               out["generated"][0, :12].tolist())
+    launches = out["launches"]
+    del model, out, scores, plain
+    torch.cuda.empty_cache()
+    row["f32_flash_vs_plain_max_abs"] = check_lm_flash_against_plain(
+        device, cfg=get_config(AUDIO_ARCH, dtype="float32", use_flash=True),
+        batch=batch, prompt=score)
+    torch.cuda.empty_cache()
+    row["f32_prefill_decode_max_abs_err"] = check_audio_decode_f32(device)
+    torch.cuda.empty_cache()
+    row["host"] = check_smoke_against_host(device, AUDIO_ARCH,
+                                           AUDIO_HOST_ATOL, "[audio]")
+    row["phase_s"] = time.perf_counter() - t_phase
+    log(f"[audio] encoder {encoder_ms:.4f} ms ({batch} x {cfg.enc_seq} "
+        f"frames); scoring {row['scoring_s'] * 1e3:.4f} ms against the bound "
+        f"{row['scoring_bound_ms']:.4f} ms ({row['scoring_bf16_ops']:.4g} "
+        f"bf16 and {row['scoring_f32_ops']:.4g} float32 operations); a "
+        f"decode step {row['decode_step_ms']:.4f} ms against "
+        f"{row['decode_step_bound_ms']:.4f} ms; bf16 logits of the flash "
+        f"route within {every_diff:.4g} of the plain route's at all "
+        f"positions, next tokens agree at {every:.4f} of them; phase "
+        f"{row['phase_s']:.3f} s")
+    return {"launches": launches, "row": row}
+
+
+def check_audio_decode_f32(device, prompt: int = AUDIO_PROMPT,
+                           steps: int = LM_GEN - 1) -> float:
+    """whisper-base at full width and depth in float32 (TF32 off), two
+    clips: prefill of ``prompt`` tokens with the frames and ``steps``
+    decode steps on the prompts' own next tokens (the encoder output read
+    from the cache) against one forward of all of them, within
+    AUDIO_DECODE_ATOL."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(AUDIO_ARCH, dtype="float32")
+    model = build_model(cfg, device,
+                        torch.Generator(device=device).manual_seed(1))
+    tokens, frames = lm_inputs(cfg, 2, prompt + steps, device, seed=5)
+    sf = make_serve_fns(model)
+    with torch.no_grad():
+        full, _ = model(tokens, frames)
+    logits, cache = sf.prefill(tokens[:, :prompt],
+                               model.init_cache(2, prompt + steps), frames)
+    rows = [logits[:, -1]]
+    for t in range(steps):
+        logits, cache = sf.decode(
+            tokens[:, prompt + t:prompt + t + 1], cache,
+            torch.full((2, 1), prompt + t, device=device))
+        rows.append(logits[:, -1])
+    err = float((torch.stack(rows, 1) - full[:, prompt - 1:]).abs().max())
+    if not (torch.isfinite(full).all() and err < AUDIO_DECODE_ATOL):
+        raise AssertionError(f"float32 prefill and decode differ from the "
+                             f"full forward by {err:.3g}")
+    log(f"[audio] float32 at full width and depth: prefill of {prompt} "
+        f"tokens with the frames and {steps} decode steps within {err:.3g} "
+        f"of one forward of the {prompt + steps} tokens (atol "
+        f"{AUDIO_DECODE_ATOL}; |logit| up to {float(full.abs().max()):.3g})")
+    return err
+
+
+def run_vlm_path(device, cfg=None, batch: int = LM_BATCH,
+                 prompt: int = LM_PROMPT, gen: int = LM_GEN) -> dict:
+    """internvl2-76b at full width, VLM_LAYERS layers, served as the LM
+    path is behind its patches (``serve_lm``): one scoring forward over
+    patches + tokens (K4 once a layer, causal, GQA group 8), prefill into
+    a cache of n_patches + prompt + gen slots and gen - 1 decode steps from
+    position n_patches + prompt.  Gates: the scoring logits against the
+    prefill logits (plain route) within the spread
+    (``check_within_spread``), peak memory under VLM_MAX_MEMORY,
+    VLM_CHECK_LAYERS layers in float32 (flash against plain) and the smoke
+    model on the card against the host."""
+    t_phase = time.perf_counter()
+    cfg = cfg or get_config(VLM_ARCH, n_layers=VLM_LAYERS, use_flash=True)
+    out = serve_lm(device, cfg, "vlm", batch, prompt, gen,
+                   cfg.n_patches + prompt + gen)
+    model, scores, row = out["model"], out["scores"], out["row"]
+    if not row["max_memory_bytes"] < VLM_MAX_MEMORY:
+        raise AssertionError(f"peak memory {row['max_memory_bytes']} bytes "
+                             f"is not under {VLM_MAX_MEMORY:.4g}")
+    # Bounds: every weight but the embedding (a gather) on its rows, the
+    # layers on patches + tokens, the head on the last; K4's causal pairs.
+    # A decode step reads those weights.
+    head = cfg.d_model * cfg.vocab
+    layer_w = row["n_params"] - 2 * head - cfg.d_model
+    rows_ = batch * (cfg.n_patches + prompt)
+    S = cfg.n_patches + prompt
+    ops = (2 * (layer_w * rows_ + head * batch)
+           + 4 * cfg.head_dim * cfg.n_heads * batch * cfg.n_layers
+           * S * (S + 1) // 2)
+    row.update(check_within_spread(model, cfg, device, scores,
+                                   out["pre_logits"], batch, prompt, "[vlm]"))
+    row.update(scoring_ops=ops,
+               scoring_bound_ms=bound_ms(0, ops, BF16_OPS_PER_S)[0],
+               decode_step_bound_ms=bound_ms(2 * (layer_w + head), 0)[0])
+    log_served("vlm", row, batch, prompt, gen,
+               out["generated"][0, :12].tolist())
+    launches = out["launches"]
+    del model, out, scores
+    torch.cuda.empty_cache()
+    row["f32_flash_vs_plain_max_abs"] = check_lm_flash_against_plain(
+        device, cfg=get_config(VLM_ARCH, n_layers=VLM_CHECK_LAYERS,
+                               dtype="float32", use_flash=True))
+    torch.cuda.empty_cache()
+    row["host"] = check_smoke_against_host(device, VLM_ARCH, VLM_HOST_ATOL,
+                                           "[vlm]")
+    row["phase_s"] = time.perf_counter() - t_phase
+    log(f"[vlm] {cfg.n_layers} of {get_config(VLM_ARCH).n_layers} layers "
+        f"behind {cfg.n_patches} patches:"
+        f" scoring {row['scoring_s'] * 1e3:.3f} ms against the bound "
+        f"{row['scoring_bound_ms']:.3f} ms ({ops:.4g} operations); a decode "
+        f"step {row['decode_step_ms']:.3f} ms against "
+        f"{row['decode_step_bound_ms']:.3f} ms (the weights' bytes); peak "
+        f"memory {row['max_memory_bytes']} bytes; phase "
+        f"{row['phase_s']:.3f} s")
+    return {"launches": launches, "row": row}
 
 
 # ---------------------------------------------------------------------------
@@ -2873,27 +3227,28 @@ def check_runtime_against_host(model_subq, model_qs, device) -> None:
         f"{worst:.3g} of the host's on {len(sides['card'])} requests")
 
 
-def check_lm_flash_against_plain(device, n_layers: int = 4,
-                                 cfg=None) -> float:
+def check_lm_flash_against_plain(device, n_layers: int = 4, cfg=None,
+                                 batch: int = LM_BATCH,
+                                 prompt: int = LM_PROMPT) -> float:
     """glm4-9b (or ``cfg``) at full width, ``n_layers`` layers, float32
     with TF32 off: the scoring logits with ``use_flash`` (the kernel) and
-    without it (the einsum route) on the same weights and prompts, within
-    LM_F32_ATOL with the same next tokens.  For an MoE configuration the
-    plain route replays the routing the flash route took, so no rounding
-    flips an expert."""
+    without it (the einsum route) on the same weights and prompts (and
+    patches or frames), within LM_F32_ATOL with the same next tokens.  For
+    an MoE configuration the plain route replays the routing the flash
+    route took, so no rounding flips an expert."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = cfg or get_config(LM_ARCH, n_layers=n_layers, dtype="float32",
                             use_flash=True)
     model = build_model(cfg, device,
                         torch.Generator(device=device).manual_seed(1))
-    tokens = lm_prompts(cfg.vocab, LM_BATCH, LM_PROMPT, device)
+    tokens, patches = lm_inputs(cfg, batch, prompt, device)
     with torch.no_grad():
         flash, routes = record_routes(
-            lambda: model(tokens, last_only=True)[0])
+            lambda: model(tokens, patches, last_only=True)[0])
         model.cfg = cfg.with_(use_flash=False)
-        plain, _ = record_routes(lambda: model(tokens, last_only=True)[0],
-                                 replay=routes)
+        plain, _ = record_routes(
+            lambda: model(tokens, patches, last_only=True)[0], replay=routes)
     err = float((flash - plain).abs().max())
     agree = bool((flash[:, -1].argmax(-1) == plain[:, -1].argmax(-1)).all())
     if not (torch.isfinite(flash).all() and err <= LM_F32_ATOL and agree):
@@ -2918,7 +3273,7 @@ def check_lm_against_host(device, n_layers: int = 2, cfg=None,
                             use_flash=True)
     model = build_model(cfg, device,
                         torch.Generator(device=device).manual_seed(2))
-    tokens = lm_prompts(cfg.vocab, 1, length, device)
+    tokens, _ = lm_inputs(cfg, 1, length, device)
     with torch.no_grad():
         card, _ = model(tokens, last_only=True)
         card = card.cpu()
@@ -3986,6 +4341,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     hybrid_path = run_hybrid_path(device)
     torch.cuda.empty_cache()
+    audio_path = run_audio_path(device)
+    torch.cuda.empty_cache()
+    vlm_path = run_vlm_path(device)
+    torch.cuda.empty_cache()
     lm_train_path = run_lm_train_path(device)
     paths = {"compile": compile_path["launches"],
              "runtime": runtime_path["launches"],
@@ -4001,6 +4360,8 @@ def main() -> int:
              "moe": moe_path["launches"],
              "ssm": ssm_path["launches"],
              "hybrid": hybrid_path["launches"],
+             "audio": audio_path["launches"],
+             "vlm": vlm_path["launches"],
              "lm_train": lm_train_path["launches"]}
     kernels = []
     entries["flash_attention"]["lm_launches_by_body"] = \
@@ -4009,6 +4370,11 @@ def main() -> int:
         moe_path["row"]["flash_launches_scoring_by_body"]
     entries["flash_attention"]["hybrid_launches_by_body"] = \
         hybrid_path["row"]["k4_launches_by_body"]
+    for name, path in (("audio", audio_path), ("vlm", vlm_path)):
+        row = path["row"]
+        entries["flash_attention"][f"{name}_launches_by_body"] = {
+            "scoring": row["flash_launches_scoring_by_body"],
+            "generation": row["flash_launches_generation"]}
     for k in KERNELS:
         e = dict(entries[k["name"]])
         by_path = {p: paths[p][k["name"]] for p in paths}

@@ -1,9 +1,8 @@
-"""Blocks of the dense, MoE, hybrid and SSM families: attention (GQA +
-RoPE), the SwiGLU MLP, the top-k capacity MoE MLP, the Mamba (S6)
+"""Blocks of the language models: attention (GQA + RoPE, self- or
+cross-), the SwiGLU MLP, the top-k capacity MoE MLP, the Mamba (S6)
 selective scan and RWKV-6's time and channel mix, cache-aware.
 
-The counterpart of the reference's ``archs/blocks.py`` for what those
-families run.  Conventions:
+The counterpart of the reference's ``archs/blocks.py``.  Conventions:
 
 * ``init_*`` returns the parameter dict of ONE layer, drawn from an
   explicit ``torch.Generator``; the model wraps it in a module.
@@ -18,8 +17,10 @@ families run.  Conventions:
   flash-attention kernel on the cacheless forward when ``cfg.use_flash``.
 
 The reference's activation-sharding constraints are no-ops without a mesh
-and are dropped.  Cross-attention (the audio family) comes with the slice
-that ports that family.  The recurrent blocks keep the reference's
+and are dropped.  ``apply_attention(xattn_kv=...)`` attends precomputed
+K/V non-causally, as the reference's does; the encoder–decoder's own
+cross-attention (``archs/encdec.py``) is the reference's float32 einsum
+and does not call it.  The recurrent blocks keep the reference's
 semantics, which are not the published models': RWKV-6 has no bonus
 ``u`` term and its output at step t reads the state before token t's
 kᵀv; Mamba materialises its (B, S, din, N) float32 decays and inputs.
@@ -164,13 +165,18 @@ def _attend_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def apply_attention(cfg: ArchConfig, p: Params, x: torch.Tensor,
                     positions: torch.Tensor,
                     cache: Optional[Dict[str, Any]] = None,
+                    xattn_kv: Optional[Tuple[torch.Tensor,
+                                             torch.Tensor]] = None,
                     causal: bool = True
-                    ) -> Tuple[torch.Tensor, Dict[str, Any]]:
-    """Self-attention with an optional KV cache.
+                    ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
+    """Self- (or cross-) attention with an optional KV cache.
 
     cache: {"k": (B, Hkv, C, Dh), "v": ..., "len": int} — the new entries
     are written at ``len`` and attention covers the valid prefix.  Without
     a cache the layer's K/V come back as a cache of exactly S entries.
+    ``xattn_kv`` = (k, v), each (B, Hkv, Se, Dh), supplies precomputed
+    encoder K/V: the queries attend all of them (no mask, the flash route
+    when ``cfg.use_flash``) and ``cache`` comes back unchanged.
     """
     B, S, d = x.shape
     hq, hkv, dh = cfg.n_heads, cfg.n_kv, cfg.head_dim
@@ -179,6 +185,12 @@ def apply_attention(cfg: ArchConfig, p: Params, x: torch.Tensor,
         q = q + p["bq"]
     q = q.reshape(B, S, hq, dh)
     q = rope(q, positions, cfg.rope_theta).transpose(1, 2)
+
+    if xattn_kv is not None:
+        k, v = xattn_kv
+        y = _attend(q, k, v, causal=False, window=0, kv_len=None,
+                    use_flash=cfg.use_flash)
+        return y.transpose(1, 2).reshape(B, S, hq * dh) @ p["wo"], cache
 
     k = x @ p["wk"]
     v = x @ p["wv"]

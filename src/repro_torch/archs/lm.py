@@ -1,12 +1,15 @@
-"""Decoder-only language models of the dense, MoE, hybrid (jamba) and SSM
-(RWKV-6) families, as one ``nn.Module``.
+"""Decoder-only language models of the dense, MoE, hybrid (jamba), SSM
+(RWKV-6) and VLM families, as one ``nn.Module``.
 
-The counterpart of the reference's ``archs/lm.py`` for those families: a
-stack of pre-norm layers.  Dense and MoE layers are attention with the
-SwiGLU MLP or the top-k capacity MoE; an SSM layer is RWKV-6's time mix
-and channel mix; a hybrid model stacks groups of one attention layer
-(dense MLP) and ``attn_every − 1`` Mamba layers, whose MLP is the MoE at
-positions ``i % moe_every == 1`` and dense elsewhere.  Where the
+The counterpart of the reference's ``archs/lm.py``: a stack of pre-norm
+layers.  Dense, VLM and MoE layers are attention with the SwiGLU MLP or
+the top-k capacity MoE; a VLM model prepends ``n_patches`` stub patch
+embeddings to the token embeddings, runs the layers over both (positions
+count the patches) and slices the patch rows off before the head; an
+SSM layer is RWKV-6's time mix and channel mix; a hybrid model stacks
+groups of one attention layer (dense MLP) and ``attn_every − 1`` Mamba
+layers, whose MLP is the MoE at positions ``i % moe_every == 1`` and
+dense elsewhere.  Where the
 reference scans over parameters stacked on a leading L axis (for the
 hybrid family, over groups, with each group's Mamba layers stacked once
 more), the port keeps one module per layer or group in an
@@ -16,7 +19,8 @@ the reference's (weights are (d_in, d_out) and a layer computes
 ``e_down``, the experts stacked on a leading E axis), so
 :func:`params_from_reference` maps a reference parameter tree onto
 :meth:`LM.state_dict` leaf by leaf and :func:`params_to_reference` maps it
-back.
+back; both also map the encoder–decoder's tree (``archs/encdec.py``),
+whose ``enc_layers`` and ``dec_layers`` are stacked as ``layers`` is.
 
 Parameters are built frozen, so serving builds no autograd graph; the
 train step (``train/train_loop.py``) turns gradients on for the model it
@@ -41,10 +45,17 @@ from .blocks import (apply_attention, apply_mamba, apply_mlp, apply_moe,
                      init_mamba, init_mlp, init_moe, init_rwkv)
 from .common import ArchConfig, DTYPES, init_dense, rmsnorm
 
-__all__ = ["LM", "params_from_reference", "params_to_reference",
-           "reference_key"]
+__all__ = ["LM", "LM_FAMILIES", "params_from_reference",
+           "params_to_reference", "reference_key"]
 
 Cache = List[Dict[str, Any]]
+
+# The families this module builds (the audio family is ``EncDec``'s).
+LM_FAMILIES = ("dense", "moe", "hybrid", "ssm", "vlm")
+
+# The reference's subtrees of per-layer leaves stacked on a leading axis:
+# an LM's layers, an encoder–decoder's two stacks.
+_STACKS = ("layers", "enc_layers", "dec_layers")
 
 # A hybrid group's Mamba layers: the reference stacks each list of them on
 # a second axis, (G, n, ...), and the port keeps a ModuleList.
@@ -197,10 +208,9 @@ class LM(nn.Module):
 
     def __init__(self, cfg: ArchConfig, *, generator: torch.Generator):
         super().__init__()
-        if cfg.family not in ("dense", "moe", "hybrid", "ssm"):
-            raise NotImplementedError(
-                f"{cfg.name}: the {cfg.family} family is not ported yet "
-                "(ROADMAP queue 1, item 13, the rest of the LLM scaffold)")
+        if cfg.family not in LM_FAMILIES:
+            raise ValueError(f"{cfg.name}: the {cfg.family} family is not "
+                             f"a decoder-only LM (one of {LM_FAMILIES})")
         if cfg.family == "hybrid" and cfg.n_layers % cfg.attn_every:
             raise ValueError(f"{cfg.name}: {cfg.n_layers} layers do not "
                              f"split into groups of {cfg.attn_every}")
@@ -232,14 +242,23 @@ class LM(nn.Module):
         return self.embed.T if self.cfg.tie_embeddings else self.lm_head
 
     def _run_layers(self, tokens, caches: Optional[Cache],
-                    positions: Optional[torch.Tensor]
+                    positions: Optional[torch.Tensor], patches=None
                     ) -> Tuple[torch.Tensor, Cache]:
+        """The layers' output at the token rows, and the new caches.  A VLM
+        model given ``patches`` (B, P, d_model) runs them ahead of the
+        tokens, at positions 0 … P − 1, and drops their rows after the
+        last layer; other families ignore them, as the reference does."""
         tokens = torch.as_tensor(tokens, device=self.device)
-        B, S = tokens.shape
         if caches is not None and len(caches) != len(self.layers):
             raise ValueError(f"{len(caches)} layer caches for "
                              f"{len(self.layers)} layers")
         x = self.embed[tokens]
+        n_patches = 0
+        if self.cfg.family == "vlm" and patches is not None:
+            patches = torch.as_tensor(patches, device=self.device)
+            x = torch.cat([patches.to(x.dtype), x], dim=1)
+            n_patches = patches.shape[1]
+        B, S = x.shape[:2]
         if positions is None:
             positions = torch.arange(S, device=self.device).expand(B, S)
         else:
@@ -253,7 +272,7 @@ class LM(nn.Module):
                 x, c = layer(self.cfg, x, positions,
                              None if caches is None else caches[i])
             new_caches.append(c)
-        return x, new_caches
+        return x[:, n_patches:], new_caches
 
     def _remat(self, x: torch.Tensor) -> bool:
         """Recompute a layer in the backward pass: ``remat="block"``, and
@@ -261,7 +280,7 @@ class LM(nn.Module):
         return (self.cfg.remat == "block" and torch.is_grad_enabled()
                 and x.requires_grad)
 
-    def forward(self, tokens, caches: Optional[Cache] = None,
+    def forward(self, tokens, patches=None, caches: Optional[Cache] = None,
                 positions: Optional[torch.Tensor] = None,
                 last_only: bool = False) -> Tuple[torch.Tensor, Cache]:
         """Logits (B, S or 1, V) and the per-layer caches.
@@ -269,9 +288,11 @@ class LM(nn.Module):
         Without ``caches`` this is the cacheless full-sequence forward
         (prompt scoring), whose attention runs the flash kernel when
         ``cfg.use_flash``; with them, the new tokens are written into the
-        caches at their ``len`` and attend the valid prefix.
+        caches at their ``len`` and attend the valid prefix.  A VLM model's
+        ``patches`` (B, n_patches, d_model) go ahead of the tokens and
+        take cache slots, but no logits.
         """
-        x, new_caches = self._run_layers(tokens, caches, positions)
+        x, new_caches = self._run_layers(tokens, caches, positions, patches)
         if last_only:
             x = x[:, -1:]   # serve prefill: only next-token logits needed
         x = rmsnorm(x, self.norm_f, self.cfg.norm_eps)
@@ -280,7 +301,8 @@ class LM(nn.Module):
     def loss(self, batch: Mapping[str, Any]) -> torch.Tensor:
         """Mean next-token cross entropy over labels ≥ 0 (float32)."""
         labels = torch.as_tensor(batch["labels"], device=self.device).long()
-        x, _ = self._run_layers(batch["tokens"], None, None)
+        x, _ = self._run_layers(batch["tokens"], None, None,
+                                batch.get("patches"))
         x = rmsnorm(x, self.norm_f, self.cfg.norm_eps)
         B, S = labels.shape
         head = self.head()
@@ -376,11 +398,14 @@ def _n_stacked(node: Mapping[str, Any], axis: int = 0) -> int:
 
 
 def params_from_reference(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """The port's :class:`LM` state dict from a reference parameter tree.
+    """The port's state dict (:class:`LM` or ``EncDec``) from a reference
+    parameter tree.
 
-    ``tree`` is what the reference's ``build_lm(cfg).init`` returns, as
-    nested dicts of numpy arrays (or tensors).  ``tree["layers"]`` holds
-    leaves stacked on a leading L (or group) axis, which become
+    ``tree`` is what the reference's ``build_lm(cfg).init`` (or
+    ``build_encdec(cfg).init``) returns, as nested dicts of numpy arrays
+    (or tensors).  ``tree["layers"]`` (an encoder–decoder's
+    ``tree["enc_layers"]`` and ``tree["dec_layers"]``) holds leaves
+    stacked on a leading L (or group) axis, which become
     ``layers.<i>.<path>``; a hybrid group's ``mamba_moe`` and
     ``mamba_dense`` leaves are stacked on a second axis as well, (G, n,
     ...), and become ``layers.<i>.mamba_moe.<j>.<path>``.  Dtypes are kept.
@@ -394,15 +419,18 @@ def params_from_reference(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
             else:
                 out[f"{prefix}{k}"] = _tensor(v, index)
 
-    walk({k: v for k, v in tree.items() if k != "layers"}, "", ())
-    layers = tree["layers"]
-    for i in range(_n_stacked(layers)):
-        for k, v in layers.items():
-            if k in _NESTED:
-                for j in range(_n_stacked(v, 1)):
-                    walk(v, f"layers.{i}.{k}.{j}.", (i, j))
-            else:
-                walk({k: v}, f"layers.{i}.", (i,))
+    walk({k: v for k, v in tree.items() if k not in _STACKS}, "", ())
+    for stack in _STACKS:
+        layers = tree.get(stack)
+        if layers is None:
+            continue
+        for i in range(_n_stacked(layers)):
+            for k, v in layers.items():
+                if k in _NESTED:
+                    for j in range(_n_stacked(v, 1)):
+                        walk(v, f"{stack}.{i}.{k}.{j}.", (i, j))
+                else:
+                    walk({k: v}, f"{stack}.{i}.", (i,))
     return out
 
 
@@ -410,15 +438,16 @@ def reference_key(name: str) -> Tuple[Tuple[str, ...], Tuple[int, ...]]:
     """A state-dict name's path in the reference's parameter tree and its
     index into the stacked leaf: ``layers.3.attn.wq`` → (("layers", "attn",
     "wq"), (3,)); ``layers.1.mamba_moe.2.mamba.in_proj`` → (("layers",
-    "mamba_moe", "mamba", "in_proj"), (1, 2)); names outside the layers
+    "mamba_moe", "mamba", "in_proj"), (1, 2)); ``dec_layers.0.xattn.wk``
+    → (("dec_layers", "xattn", "wk"), (0,)); names outside the stacks
     have the index ()."""
     parts = name.split(".")
-    if parts[0] != "layers":
+    if parts[0] not in _STACKS:
         return tuple(parts), ()
     index, rest = (int(parts[1]),), parts[2:]
     if rest[0] in _NESTED:
         index, rest = index + (int(rest[1]),), rest[:1] + rest[2:]
-    return ("layers",) + tuple(rest), index
+    return (parts[0],) + tuple(rest), index
 
 
 def _stack(by_index: Mapping[Tuple[int, ...], torch.Tensor],
@@ -434,11 +463,11 @@ def _stack(by_index: Mapping[Tuple[int, ...], torch.Tensor],
 
 
 def params_to_reference(state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
-    """The reference's parameter tree from a state dict of :class:`LM`, the
-    inverse of :func:`params_from_reference`: nested dicts of CPU tensors,
-    each per-layer leaf stacked on a leading L axis (a hybrid group's
-    Mamba leaves on two).  Dtypes are kept (bfloat16 tensors stay tensors;
-    JAX takes them through a uint16 view).
+    """The reference's parameter tree from a state dict of :class:`LM` (or
+    ``EncDec``), the inverse of :func:`params_from_reference`: nested dicts
+    of CPU tensors, each per-layer leaf stacked on a leading L axis (a
+    hybrid group's Mamba leaves on two).  Dtypes are kept (bfloat16
+    tensors stay tensors; JAX takes them through a uint16 view).
     """
     stacks: Dict[Tuple[str, ...], Dict[Tuple[int, ...], torch.Tensor]] = {}
     out: Dict[str, Any] = {}

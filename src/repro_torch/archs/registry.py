@@ -1,11 +1,12 @@
 """Architecture registry: ``--arch <id>`` → configuration → model.
 
-``ARCH_IDS`` lists every architecture the reference knows; the port has
-the configurations and the models of the dense family (minicpm-2b,
-deepseek-coder-33b, glm4-9b, qwen2-72b), the MoE family (dbrx-132b,
-moonshot-v1-16b-a3b), the hybrid family (jamba-1.5-large-398b) and the
-SSM family (rwkv6-1.6b).  The others (whisper-base, internvl2-76b) raise
-``NotImplementedError`` until their family is ported.
+``ARCH_IDS`` lists every architecture the reference knows, and the port
+has the configuration and the model of each: the dense family
+(minicpm-2b, deepseek-coder-33b, glm4-9b, qwen2-72b), the MoE family
+(dbrx-132b, moonshot-v1-16b-a3b), the hybrid family
+(jamba-1.5-large-398b), the SSM family (rwkv6-1.6b) and the VLM family
+(internvl2-76b) as :class:`~repro_torch.archs.lm.LM`, and the audio
+family (whisper-base) as :class:`~repro_torch.archs.encdec.EncDec`.
 """
 from __future__ import annotations
 
@@ -15,8 +16,11 @@ from typing import List, Optional
 import torch
 
 from ..device import DeviceLike, resolve_device
+from torch import nn
+
 from .common import ArchConfig
-from .lm import LM
+from .encdec import EncDec
+from .lm import LM, LM_FAMILIES
 
 __all__ = ["ARCH_IDS", "get_config", "get_smoke_config", "build_model"]
 
@@ -33,18 +37,10 @@ ARCH_IDS: List[str] = [
     "internvl2-76b",
 ]
 
-_PORTED = ("minicpm-2b", "deepseek-coder-33b", "glm4-9b", "qwen2-72b",
-           "dbrx-132b", "moonshot-v1-16b-a3b", "jamba-1.5-large-398b",
-           "rwkv6-1.6b")
-
 
 def _module(arch_id: str):
     if arch_id not in ARCH_IDS:
         raise ValueError(f"unknown architecture {arch_id!r}")
-    if arch_id not in _PORTED:
-        raise NotImplementedError(
-            f"{arch_id}: its family is not ported yet (ROADMAP queue 1, "
-            "item 13, the rest of the LLM scaffold)")
     mod_name = arch_id.replace("-", "_").replace(".", "_")
     return importlib.import_module(f"repro_torch.configs.{mod_name}")
 
@@ -60,13 +56,19 @@ def get_smoke_config(arch_id: str, **overrides) -> ArchConfig:
 
 
 def build_model(cfg: ArchConfig, device: DeviceLike = None,
-                generator: Optional[torch.Generator] = None) -> LM:
-    """The model of ``cfg`` with weights drawn on ``device`` (``None``: the
+                generator: Optional[torch.Generator] = None) -> nn.Module:
+    """The model of ``cfg`` (an :class:`EncDec` for the audio family, an
+    :class:`LM` otherwise) with weights drawn on ``device`` (``None``: the
     CUDA card) from ``generator`` (default: seeded with 0 on that device).
+    An unknown family raises ``ValueError``.
     """
+    if cfg.family != "audio" and cfg.family not in LM_FAMILIES:
+        raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}")
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
     elif generator.device.type != dev.type:
         raise ValueError(f"generator on {generator.device}, model on {dev}")
+    if cfg.family == "audio":
+        return EncDec(cfg, generator=generator)
     return LM(cfg, generator=generator)

@@ -3,8 +3,10 @@
 ``python -m repro_torch.launch.serve --arch glm4-9b --batch 4
 --prompt-len 32 --gen 16`` builds the model at smoke size (``--full`` for
 the published widths) with weights from ``--seed`` on the CUDA card,
-prefills a batch of random prompts and decodes greedily.  The flags and
-their defaults are the reference's.
+prefills a batch of random prompts and decodes greedily.  A VLM model's
+patch embeddings and an audio model's frames are drawn after the tokens
+from the same numpy stream; the patches take the cache's first slots.
+The flags and their defaults are the reference's.
 """
 from __future__ import annotations
 
@@ -39,22 +41,28 @@ def main(argv: Optional[Sequence[str]] = None,
            else get_config(args.arch))
     model = build_model(cfg, dev, torch.Generator(device=dev).manual_seed(
         args.seed))
-    max_len = args.prompt_len + args.gen
+    n_patches = cfg.n_patches if cfg.family == "vlm" else 0
+    max_len = args.prompt_len + args.gen + n_patches
     sf = make_serve_fns(model)
 
     rng = np.random.default_rng(args.seed)
     tokens = torch.from_numpy(
         rng.integers(0, cfg.vocab, (args.batch, args.prompt_len))).to(dev)
+    patches = None
+    if cfg.family in ("vlm", "audio"):
+        rows = cfg.n_patches if cfg.family == "vlm" else cfg.enc_seq
+        patches = torch.from_numpy(rng.normal(
+            0, 1, (args.batch, rows, cfg.d_model)).astype(np.float32)).to(dev)
 
     cache = model.init_cache(args.batch, max_len)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
-    logits, cache = sf.prefill(tokens, cache)
+    logits, cache = sf.prefill(tokens, cache, patches)
     nxt = torch.argmax(logits[:, -1], -1)
     generated = [nxt.cpu().numpy()]
     t_prefill = time.perf_counter() - t0
-    pos0 = args.prompt_len
+    pos0 = args.prompt_len + n_patches
     t0 = time.perf_counter()
     for t in range(args.gen - 1):
         pos = torch.full((args.batch, 1), pos0 + t, dtype=torch.int64,

@@ -16,9 +16,10 @@ from typing import Any, Callable, Dict, Iterator, List, Mapping, \
     Optional, Sequence, Tuple
 
 import torch
+from torch import nn
 
 from ..archs.common import ArchConfig
-from ..archs.lm import LM
+from ..archs.registry import build_model
 from ..device import DeviceLike, resolve_device
 from .checkpoint import save_checkpoint
 from .optimizer import OptConfig, opt_init, opt_update
@@ -55,7 +56,7 @@ def _to_device(batch: Mapping[str, Any], device: torch.device
     return out
 
 
-def _accum_grads(model: LM, tensors: Sequence[torch.Tensor],
+def _accum_grads(model: nn.Module, tensors: Sequence[torch.Tensor],
                  batch: Dict[str, torch.Tensor], accum: int
                  ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
     """Mean loss and gradients over ``accum`` contiguous microbatches, as
@@ -82,13 +83,16 @@ def _accum_grads(model: LM, tensors: Sequence[torch.Tensor],
         return l_acc * scale, [a.mul_(scale) for a in g_acc]
 
 
-def make_train_step(model: LM, opt_cfg: OptConfig = OptConfig(), *,
+def make_train_step(model: nn.Module, opt_cfg: OptConfig = OptConfig(), *,
                     accum: int = 1) -> TrainStepFns:
     """The training step of ``model``, whose parameters it turns trainable.
 
-    The loss is ``model.loss`` (mean next-token cross entropy), its
-    gradients come from autograd (each layer recomputed in the backward
-    pass when ``cfg.remat == "block"``), and the update is
+    ``model`` is what ``registry.build_model`` returns.  The loss is
+    ``model.loss`` (mean next-token cross entropy; a batch's ``patches``,
+    a VLM model's patch embeddings or an audio model's frames, go to the
+    card with the tokens and into it), its gradients come from autograd
+    (each layer recomputed in the backward pass when ``cfg.remat ==
+    "block"``), and the update is
     :func:`~repro_torch.train.optimizer.opt_update`.  With ``accum`` > 1 the
     batch's leading axis splits into ``accum`` microbatches.  A model with
     ``cfg.use_flash`` raises: the flash-attention kernel has no backward
@@ -124,22 +128,19 @@ def make_train_step(model: LM, opt_cfg: OptConfig = OptConfig(), *,
 
 
 def make_init(cfg: ArchConfig, device: DeviceLike = None
-              ) -> Callable[[torch.Generator], LM]:
+              ) -> Callable[[torch.Generator], nn.Module]:
     """The counterpart of the reference's jitted initialiser: a function
     that draws the model of ``cfg`` on ``device`` (``None``: the card) from
     a generator on that device."""
     dev = resolve_device(device)
 
-    def init(generator: torch.Generator) -> LM:
-        if generator.device.type != dev.type:
-            raise ValueError(f"generator on {generator.device}, model on "
-                             f"{dev}")
-        return LM(cfg, generator=generator)
+    def init(generator: torch.Generator) -> nn.Module:
+        return build_model(cfg, dev, generator)
 
     return init
 
 
-def train_loop(model: LM, data_iter: Iterator[Mapping[str, Any]], *,
+def train_loop(model: nn.Module, data_iter: Iterator[Mapping[str, Any]], *,
                steps: int, opt_cfg: OptConfig = OptConfig(), accum: int = 1,
                checkpoint_dir: Optional[str] = None,
                checkpoint_every: int = 0, log_every: int = 10,

@@ -7,15 +7,14 @@ packages evaluate the same closed forms on the same numbers and are held
 exactly:
 
 * ``ClusterCostModel.stage_eval`` on random unit θ, every block, for the
-  10 configurations × 4 shape cells (the two configurations whose family
-  is not ported are carried across field for field; dbrx-132b and
-  moonshot-v1-16b-a3b, ported, take the MoE branches, jamba-1.5-large-398b
-  and rwkv6-1.6b, ported, the hybrid and SSM ones);
+  10 configurations × 4 shape cells (dbrx-132b and moonshot-v1-16b-a3b
+  take the MoE branches, jamba-1.5-large-398b and rwkv6-1.6b the hybrid
+  and SSM ones, whisper-base and internvl2-76b the audio and VLM ones);
 * ``autotune``'s launch plans (θ dicts, prediction, front) and
   ``summary()`` with the solve time masked, for the 10 configurations × 3
   weights, on the float64 host route and, for one configuration, with the
-  kernel route forced on both sides (both compare in float32); the
-  ported MoE, hybrid and SSM configurations also from ``autotune``'s own
+  kernel route forced on both sides (both compare in float32); the MoE,
+  hybrid, SSM, audio and VLM configurations also from ``autotune``'s own
   ``get_config``, the recurrent ones at their ``long_500k`` cell too;
 * ``StepAdapter``'s recommendations and estimates, step by step;
 * the shape cells' input specs: the reference's ``ShapeDtypeStruct`` and
@@ -47,9 +46,6 @@ from repro_torch.cluster.runtime_adapt import StepAdapter
 from repro_torch.core.moo import pareto as port_pareto
 from repro_torch.launch import shapes as port_shapes
 
-PORTED = ("minicpm-2b", "deepseek-coder-33b", "glm4-9b", "qwen2-72b",
-          "dbrx-132b", "moonshot-v1-16b-a3b", "jamba-1.5-large-398b",
-          "rwkv6-1.6b")
 WEIGHTS = [(0.95, 0.05), (0.5, 0.5), (0.05, 0.95)]
 CLUSTER_SRC = pathlib.Path(port_costmodel.__file__).parent
 
@@ -67,11 +63,11 @@ def pin_reference_figures(monkeypatch) -> None:
 
 
 def port_config(arch: str) -> ArchConfig:
-    """The port's configuration, or the reference's carried field for field
-    where the family is not ported."""
-    if arch in PORTED:
-        return get_config(arch)
-    return ArchConfig(**dataclasses.asdict(ref_get_config(arch)))
+    """The port's configuration, which equals the reference's field for
+    field."""
+    cfg = get_config(arch)
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(ref_get_config(arch))
+    return cfg
 
 
 def _mask_solve_time(summary: str) -> str:
@@ -97,9 +93,16 @@ def test_h100_figures_and_no_tpu_figure():
         ref_costmodel.CHIP_PRICE_H, ref_costmodel.MXU_EFF)
 
 
-def test_unported_family_still_raises():
-    with pytest.raises(NotImplementedError, match="item 13"):
-        port_autotune.autotune("whisper-base", device="cpu")
+def test_unported_family_still_raises(monkeypatch):
+    """Every family is ported: ``get_config`` serves the audio and VLM
+    configurations, so ``autotune`` plans them without ``arch_cfg``, as
+    the reference does (figures pinned)."""
+    pin_reference_figures(monkeypatch)
+    for arch in ("whisper-base", "internvl2-76b"):
+        want = ref_autotune.autotune(arch, "train_4k", weights=(0.5, 0.5))
+        got = port_autotune.autotune(arch, "train_4k", weights=(0.5, 0.5),
+                                     device="cpu")
+        _assert_plans_equal(got, want)
 
 
 @pytest.mark.parametrize("shape", ["train_4k", "decode_32k", "long_500k"])

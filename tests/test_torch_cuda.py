@@ -783,6 +783,74 @@ def test_flash_attention_at_the_moe_shape(cuda_device):
     _assert_within_scaled_tol(got, q, k, v, True)
 
 
+# K4 at the audio and VLM paths' shapes (B, Hq, Hkv, Sq, Skv, D, causal):
+# whisper-base's encoder (non-causal over 1500 frames, which is not a
+# multiple of the 64-key tile), a decoder's 32 queries over those frames
+# (apply_attention's xattn_kv route, Sq < Skv), and internvl2-76b's
+# scoring forward (256 patches + 2048 tokens, GQA group 8, D 128).
+AUDIO_VLM_FLASH_SHAPES = [(16, 8, 8, 1500, 1500, 64, False),
+                          (16, 8, 8, 32, 1500, 64, False),
+                          (1, 64, 8, 2304, 2304, 128, True)]
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv,D,causal", AUDIO_VLM_FLASH_SHAPES)
+def test_flash_attention_at_the_audio_and_vlm_shapes(cuda_device, B, Hq, Hkv,
+                                                     Sq, Skv, D, causal):
+    """bf16 at those shapes takes the tensor-core body and stays within
+    atol 3e-2 of the plain version and within a + r|want| of its float32
+    output (FLASH_SCALED_TOL)."""
+    q, k, v = _flash_inputs(B, Hq, Hkv, Sq, Skv, D, torch.bfloat16,
+                            cuda_device, Sq + Skv + D)
+    before = dict(flash_ops.LAUNCHES_BY_BODY)
+    got = flash_ops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_ops.LAUNCHES_BY_BODY["wgmma"] == before["wgmma"] + 1
+    torch.testing.assert_close(got.float(), attention_ref(
+        q, k, v, causal=causal).float(), atol=3e-2, rtol=0)
+    _assert_within_scaled_tol(got, q, k, v, causal)
+
+
+@pytest.mark.parametrize("arch,k4", [("whisper-base", 4),
+                                     ("internvl2-76b", 2)])
+def test_smoke_audio_vlm_card_matches_host(cuda_device, arch, k4):
+    """The smoke audio and VLM models with ``use_flash`` on the card against
+    the same weights on the host, float32 with TF32 off: the forward's
+    logits with the frames or patches (K4 once an encoder and a decoder
+    layer, or once a layer), then prefill with them and 4 decode steps,
+    within atol 1e-5."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_smoke_config(arch, dtype="float32", use_flash=True)
+    card = build_model(cfg, cuda_device)
+    host = build_model(cfg, "cpu")
+    host.load_state_dict({k: t.cpu() for k, t in card.state_dict().items()})
+    rng = np.random.default_rng(2)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 48)))
+    rows = cfg.enc_seq if arch == "whisper-base" else cfg.n_patches
+    patches = torch.from_numpy(
+        rng.normal(size=(2, rows, cfg.d_model)).astype(np.float32))
+    pre = cfg.n_patches if arch == "internvl2-76b" else 0
+    before = flash_ops.LAUNCHES
+    got, _ = card(tokens, patches.to(cuda_device))
+    torch.cuda.synchronize()
+    assert flash_ops.LAUNCHES == before + k4
+    want, _ = host(tokens, patches)
+    torch.testing.assert_close(got.cpu(), want, atol=1e-5, rtol=0)
+    sides = []
+    for m in (card, host):
+        sf = make_lm_serve_fns(m)
+        cache = m.init_cache(2, pre + 44)
+        logits, cache = sf.prefill(tokens[:, :40].to(m.device), cache,
+                                   patches.to(m.device))
+        out = [logits.cpu()]
+        for t in range(4):
+            logits, cache = sf.decode(tokens[:, 40 + t:41 + t].to(m.device),
+                                      cache, torch.full((2, 1), pre + 40 + t,
+                                                        device=m.device))
+            out.append(logits.cpu())
+        sides.append(torch.cat(out, 1))
+    torch.testing.assert_close(sides[0], sides[1], atol=1e-5, rtol=0)
+
+
 @pytest.mark.parametrize("arch,k4", [("rwkv6-1.6b", 0),
                                      ("jamba-1.5-large-398b", 2)])
 def test_smoke_recurrent_card_matches_host(cuda_device, arch, k4):

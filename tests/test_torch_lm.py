@@ -235,12 +235,17 @@ def test_params_from_reference_keeps_bfloat16_bits():
 
 
 def test_non_dense_families_raise():
-    """The families not ported yet refuse; the MoE, hybrid and SSM families
-    are ported."""
-    with pytest.raises(NotImplementedError, match="item 13"):
-        get_config("whisper-base")
-    with pytest.raises(NotImplementedError, match="audio family"):
-        build_model(get_smoke_config("glm4-9b", family="audio"), "cpu")
+    """Every family is ported: an unknown family raises ``ValueError``, and
+    the audio and VLM families build (an encoder–decoder, a decoder-only
+    LM)."""
+    with pytest.raises(ValueError, match="unknown family"):
+        build_model(get_smoke_config("glm4-9b", family="video"), "cpu")
+    with pytest.raises(ValueError, match="unknown architecture"):
+        get_config("whisper-large")
+    audio = build_model(get_smoke_config("whisper-base"), "cpu")
+    vlm = build_model(get_smoke_config("internvl2-76b"), "cpu")
+    assert len(audio.enc_layers) == len(audio.dec_layers) == 2
+    assert len(vlm.layers) == 2 and not vlm.layers[0].moe
 
 
 def test_full_width_config_matches_reference():

@@ -29,6 +29,8 @@ from repro.train.checkpoint import restore_checkpoint as ref_restore
 from repro.train.checkpoint import save_checkpoint as ref_save
 from repro.train.optimizer import OptConfig as RefOptConfig
 from repro.train.optimizer import opt_init as ref_opt_init
+from repro.archs.registry import build_model as ref_build
+from repro.archs.registry import get_smoke_config as ref_smoke
 from repro_torch.archs.lm import params_from_reference, params_to_reference
 from repro_torch.archs.registry import build_model, get_smoke_config
 from repro_torch.data.pipeline import make_batch
@@ -194,8 +196,39 @@ def test_launch_train_on_host(tmp_path, capsys):
     assert np.isfinite(hist[0]["loss"]) and hist[0]["lr"] > 0
     assert latest_step(str(tmp_path)) == 6
     assert sorted(os.listdir(tmp_path)) == ["LATEST", "step_3", "step_6"]
-    with pytest.raises(NotImplementedError, match="not ported"):
-        port_launch.main(["--arch", "whisper-base", "--device", "cpu"])
+
+
+@pytest.mark.parametrize("arch", ["whisper-base", "internvl2-76b"])
+def test_launch_train_audio_and_vlm_on_host(arch, tmp_path, capsys):
+    """``launch.train`` trains the smoke audio and VLM models on the host
+    (their batches carry frames or patches): the loss is finite and falls
+    from step 10 to step 20, and the checkpoint at step 20 restores
+    bit-equal in both packages."""
+    out = port_launch.main(["--arch", arch, "--steps", "20", "--batch", "4",
+                            "--seq", "16", "--lr", "3e-3", "--ckpt-dir",
+                            str(tmp_path), "--ckpt-every", "20", "--device",
+                            "cpu"])
+    assert f"{arch}: 20 steps in" in capsys.readouterr().out
+    first, last = (h["loss"] for h in out["history"])
+    assert np.isfinite(first) and last < first
+    want = {"params": params_to_reference(out["params"]),
+            "opt": opt_state_to_reference(out["opt_state"])}
+    restored, at = restore_checkpoint(
+        str(tmp_path), {"params": out["params"], "opt": out["opt_state"]})
+    assert at == 20
+    for n, t in out["params"].items():
+        assert torch.equal(restored["params"][n], t.detach()), n
+    for key in ("m", "v"):
+        for n, t in out["opt_state"][key].items():
+            assert torch.equal(restored["opt"][key][n], t), (key, n)
+    api = ref_build(ref_smoke(arch))
+    p_shape = jax.eval_shape(api.init, jax.random.PRNGKey(0))
+    o_shape = jax.eval_shape(lambda p: ref_opt_init(p, RefOptConfig()),
+                             p_shape)
+    back, at = ref_restore(str(tmp_path), {"params": p_shape,
+                                           "opt": o_shape})
+    assert at == 20
+    _assert_trees_bit_equal(want, back)
 
 
 def test_train_lm_example_on_host(capsys):
