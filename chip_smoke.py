@@ -92,7 +92,17 @@ default model and solver widths:
   a step with 4 microbatches: step time, tokens/s against the 6NT bound,
   peak memory, host syncs a step), and the ``train_lm`` example at its
   ``--m100`` scale with its checkpoint restored bit-equal into a fresh
-  model and optimizer state.  No kernel runs on this path.
+  model and optimizer state.  No kernel runs on this path;
+* sharding (``shard``): a one-rank NCCL world and ``make_host_mesh()``'s
+  (1, 1) ("data", "model") mesh; the ``lm_train`` protocol on
+  ``minicpm-2b`` at full width under the mesh (DTensor parameters,
+  moments and batches), its losses bit-equal to the same steps without
+  a mesh; glm4-9b's bf16 scoring forward (4 x 2048, K4 once a layer on
+  each rank's heads) under the mesh, its logits bit-equal to the
+  unsharded ones; and the dry-run's rows for those two cells
+  (``launch/dryrun.py`` on a fake one-rank world, before the NCCL world
+  exists): their argument bytes against the bytes the same state holds
+  on the card, their roofline bound against the measured times.
 
 Each path runs with every kernel's launch count set to 0 just before it
 and read just after; the script fails if a kernel of a path was not
@@ -139,6 +149,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import io
 import json
 import math
@@ -153,6 +164,8 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -196,9 +209,14 @@ from repro_torch.kernels.pareto_filter.ref import (  # noqa: E402
 from repro_torch.kernels.ws_reduce import ops as ws_ops  # noqa: E402
 from repro_torch.kernels.ws_reduce.ref import (  # noqa: E402
     kept_normalised, runtime_pick_ref, ws_reduce_ref)
+from repro_torch.archs.act_sharding import set_activation_mesh  # noqa: E402
 from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
-from repro_torch.launch.shapes import SHAPES, cell_applicable  # noqa: E402
+from repro_torch.launch.dryrun import dryrun_cell, fake_world  # noqa: E402
+from repro_torch.launch.mesh import (  # noqa: E402
+    init_host_world, make_host_mesh)
+from repro_torch.launch.shapes import (  # noqa: E402
+    SHAPES, ShapeCell, cell_applicable)
 from repro_torch.queryengine.aqe import (  # noqa: E402
     LQPRequest, QSRequest, run_with_aqe)
 from repro_torch.queryengine.simulator import (  # noqa: E402
@@ -255,7 +273,7 @@ KERNELS = [
      "source": "src/repro_torch/kernels/flash_attention/csrc/"
                "flash_attention_wgmma.cu",
      "replaces": "src/repro/kernels/flash_attention/kernel.py:86",
-     "paths": ("lm", "moe", "hybrid", "audio", "vlm")},
+     "paths": ("lm", "moe", "hybrid", "audio", "vlm", "shard")},
 ]
 MAIN_PATH_SHAPE = (256, 2)          # one Algorithm 1 bank: 256-row pool, k=2
 # (n, k, layout): "uniform" rows are mostly dominated within the first tile;
@@ -552,6 +570,16 @@ LM_TRAIN_WARM, LM_TRAIN_TIMED = 2, 3
 LM_TRAIN_FULL_LR = 1e-5
 LM_TRAIN_TOP = 12             # kernels and host ops listed from a traced step
 LM_TRAIN_CKPT_STEPS = 4
+# The sharding phase: the lm_train protocol's steps after one warm-up step,
+# and the two cells of the dry-run held against the card.  PyTorch's
+# caching allocator hands a tensor a block of its bytes rounded up to 512,
+# and leaves a large block unsplit when less than 1 MiB would remain, so
+# a tensor holds at most CUDA_ALLOC_SLACK bytes more than its own.
+SHARD_STEPS = 3
+SHARD_TRAIN_CELL = ShapeCell("shard_train", "train", LM_TRAIN_SEQ,
+                             LM_TRAIN_BATCH)
+SHARD_SCORE_CELL = ShapeCell("shard_score", "score", LM_PROMPT, LM_BATCH)
+CUDA_ALLOC_SLACK = (1 << 20) + 512
 
 
 def log(msg: str) -> None:
@@ -4236,6 +4264,235 @@ def lm_train_checkpoint(device) -> dict:
             "run_s": run_s}
 
 
+def shard_dryrun_rows() -> dict:
+    """``launch/dryrun.py``'s rows for the [shard] cells on the (1, 1) mesh
+    of a fake one-rank world (meta tensors, no card); run before the NCCL
+    world exists, since a process has one default group."""
+    rows = {}
+    for key, arch, cell, over in (
+            ("train", LM_TRAIN_ARCH, SHARD_TRAIN_CELL, None),
+            ("score", LM_ARCH, SHARD_SCORE_CELL, {"use_flash": True})):
+        with fake_world(1):
+            row = dryrun_cell(arch, cell.name, cell=cell, overrides=over,
+                              verbose=False)
+        if row["status"] != "ok":
+            raise AssertionError(f"dry-run of {arch} {cell.name}: "
+                                 f"{row.get('error')}\n"
+                                 f"{row.get('traceback')}")
+        rows[key] = row
+    return rows
+
+
+def state_bytes_on_card(build) -> tuple:
+    """(bytes ``build()`` leaves allocated on the card, its result)."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    out = build()
+    torch.cuda.synchronize()
+    return torch.cuda.memory_allocated() - before, out
+
+
+def held_bytes(tensors) -> tuple:
+    """(bytes of these tensors' local shards on the card, their count)."""
+    local = [t.to_local() if isinstance(t, DTensor) else t for t in tensors]
+    return sum(t.numel() * t.element_size() for t in local), len(local)
+
+
+def check_state_bytes(what: str, allocated: int, held: tuple,
+                      row: dict) -> None:
+    """The dry-run's argument bytes equal the bytes the state's tensors
+    hold on the card, and the allocator's count exceeds them by at most
+    CUDA_ALLOC_SLACK a tensor."""
+    want = row["memory"]["argument_bytes"]
+    got, n = held
+    if got != want or not 0 <= allocated - want <= CUDA_ALLOC_SLACK * n:
+        raise AssertionError(f"[shard] {what}: the dry-run's argument bytes "
+                             f"{want} against {got} held by {n} tensors "
+                             f"and {allocated} allocated on the card")
+
+
+def shard_train(device, mesh, dry: dict) -> dict:
+    """The lm_train protocol's full-width minicpm-2b steps (8 x 512 tokens,
+    4 microbatches, LM_TRAIN_FULL_LR) without a mesh and under ``mesh``:
+    one warm-up step and SHARD_STEPS timed ones each; every loss bit-equal.
+    Under the mesh, the state the dry-run counts (parameters, moments,
+    step, one batch) is measured on the card against its argument bytes."""
+    cfg = get_config(LM_TRAIN_ARCH)
+    it = data_iterator(cfg, global_batch=LM_TRAIN_BATCH, seq_len=LM_TRAIN_SEQ,
+                       seed=0)
+    batches = [next(it) for _ in range(1 + SHARD_STEPS)]
+    opt = OptConfig(lr=LM_TRAIN_FULL_LR, total_steps=100, warmup_steps=10,
+                    moment_dtype=cfg.moment_dtype)
+    runs = {}
+    for tag, m in (("plain", None), ("mesh", mesh)):
+        set_activation_mesh(None)
+        torch.cuda.reset_peak_memory_stats()
+
+        def build():
+            model = build_model(cfg, device,
+                                torch.Generator(device=device).manual_seed(0))
+            fns = make_lm_train_step(model, opt, mesh=m, accum=cfg.train_accum)
+            params, state = fns.init()
+            batch = {k: torch.as_tensor(v).to(device)
+                     for k, v in batches[0].items()}
+            return model, fns, params, state, batch
+        allocated, (model, fns, params, state, batch) = state_bytes_on_card(
+            build)
+        held = held_bytes([*params.values(), *state["m"].values(),
+                           *state["v"].values(), state["step"],
+                           *batch.values()])
+        if m is not None:
+            check_state_bytes("minicpm-2b train state", allocated, held,
+                              dry["train"])
+            if not all(isinstance(p, DTensor) for p in params.values()):
+                raise AssertionError("[shard] the parameters under the mesh "
+                                     "are not DTensors")
+        del batch
+        losses = []
+        params, state, met = fns.step(params, state, batches[0])
+        losses.append(met["loss"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b in batches[1:]:
+            params, state, met = fns.step(params, state, b)
+            losses.append(met["loss"])
+        torch.cuda.synchronize()
+        runs[tag] = {"losses": torch.stack(losses).tolist(),
+                     "step_s": (time.perf_counter() - t0) / SHARD_STEPS,
+                     "max_memory_bytes": torch.cuda.max_memory_allocated(),
+                     "state_bytes_on_card": allocated}
+        del model, fns, params, state, met, losses
+        gc.collect()
+        torch.cuda.empty_cache()
+    set_activation_mesh(None)
+    if runs["mesh"]["losses"] != runs["plain"]["losses"]:
+        raise AssertionError(f"[shard] minicpm-2b losses under the (1, 1) "
+                             f"mesh {runs['mesh']['losses']} differ from "
+                             f"those without {runs['plain']['losses']}")
+    return runs
+
+
+def shard_score(device, mesh, dry: dict) -> dict:
+    """glm4-9b's bf16 scoring forward with K4 (4 x 2048) without a mesh and
+    under ``mesh``, through ``make_serve_fns(...).score``: logits bit-equal,
+    flash_layers launches under the mesh (the phase's count), all on the
+    wgmma body.  The parameters and int32 tokens on the card against the
+    dry-run's argument bytes."""
+    cfg = get_config(LM_ARCH, use_flash=True)
+    tokens, patches = lm_inputs(cfg, LM_BATCH, LM_PROMPT, device)
+    allocated, (model, tok32) = state_bytes_on_card(
+        lambda: (build_model(cfg, device,
+                             torch.Generator(device=device).manual_seed(0)),
+                 tokens.to(torch.int32)))
+    held = held_bytes([*model.parameters(), tok32])
+    check_state_bytes("glm4-9b parameters and tokens", allocated, held,
+                      dry["score"])
+    del tok32
+    out = {"state_bytes_on_card": allocated}
+    for tag, m in (("plain", None), ("mesh", mesh)):
+        set_activation_mesh(None)
+        fns = make_serve_fns(model, mesh=m)
+        fns.score(tokens[:, :128], patches)
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        logits = fns.score(tokens, patches)
+        torch.cuda.synchronize()
+        out[tag] = {"logits": logits, "score_s": time.perf_counter() - t0,
+                    "launches": read_launches(),
+                    "bodies": dict(flash_ops.LAUNCHES_BY_BODY)}
+    set_activation_mesh(None)
+    want = flash_layers(cfg)
+    launches = out["mesh"]["launches"]
+    if launches["flash_attention"] != want or \
+            out["mesh"]["bodies"].get("wgmma") != want:
+        raise AssertionError(f"[shard] scoring under the mesh launched K4 "
+                             f"{launches['flash_attention']} times "
+                             f"({out['mesh']['bodies']}), {want} expected "
+                             "on the wgmma body")
+    a, b = out["plain"].pop("logits"), out["mesh"].pop("logits")
+    if a.shape != (LM_BATCH, LM_PROMPT, cfg.vocab) or \
+            not torch.isfinite(a).all():
+        raise AssertionError(f"[shard] bad scoring logits {tuple(a.shape)}")
+    if not torch.equal(bits(a), bits(b)):
+        raise AssertionError(f"[shard] glm4-9b logits under the (1, 1) mesh "
+                             f"differ from the unsharded ones by "
+                             f"{float((a.float() - b.float()).abs().max())}")
+    del model, a, b
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_shard_path(device) -> dict:
+    """Sharding on one card: the dry-run's rows first, then a one-rank NCCL
+    world and its (1, 1) mesh, the train and scoring comparisons, each
+    dry-run row's bound against the measured time; the world is ended."""
+    t_phase = time.perf_counter()
+    dry = shard_dryrun_rows()
+    t_dry = time.perf_counter() - t_phase
+    if not init_host_world(device):
+        raise AssertionError("[shard] a process group was left over")
+    try:
+        mesh = make_host_mesh(device=device)
+        if mesh.shape != (1, 1) or \
+                mesh.mesh_dim_names != ("data", "model") or \
+                dist.get_backend() != "nccl":
+            raise AssertionError(f"[shard] host mesh {mesh}")
+        train = shard_train(device, mesh, dry)
+        score = shard_score(device, mesh, dry)
+    finally:
+        set_activation_mesh(None)
+        dist.destroy_process_group()
+    launches = score["mesh"]["launches"]
+    require_launches("shard", launches)
+    bounds = {"train": (dry["train"]["roofline"]["bound_s"],
+                        train["mesh"]["step_s"]),
+              "score": (dry["score"]["roofline"]["bound_s"],
+                        score["mesh"]["score_s"])}
+    for what, (bound, got) in bounds.items():
+        if not 0 < bound <= got:
+            raise AssertionError(f"[shard] the dry-run's bound {bound} s for "
+                                 f"the {what} cell against {got} s measured")
+    row = {"mesh": "1x1", "backend": "nccl",
+           "train": {k: {kk: vv for kk, vv in v.items()}
+                     for k, v in train.items()},
+           "score": {k: {kk: vv for kk, vv in v.items() if kk != "logits"}
+                     if isinstance(v, dict) else v
+                     for k, v in score.items()},
+           "dryrun": {k: {"argument_bytes": r["memory"]["argument_bytes"],
+                          "peak_per_device_gb":
+                              r["memory"]["peak_per_device_gb"],
+                          "roofline": r["roofline"],
+                          "flops_per_device": r["flops_per_device"],
+                          "bytes_per_device": r["bytes_per_device"],
+                          "collective_by_type": r["collective_by_type"],
+                          "t_run_s": r["t_run_s"]}
+                      for k, r in dry.items()},
+           "dryrun_s": t_dry}
+    log(f"[shard] {json.dumps(row)}")
+    log(f"[shard] minicpm-2b full width, 8 x 512 tokens, accum 4: "
+        f"{train['plain']['step_s']:.4f} s a step without a mesh, "
+        f"{train['mesh']['step_s']:.4f} s under the (1, 1) mesh "
+        f"(bound {bounds['train'][0]:.4f} s from the dry-run); losses "
+        f"bit-equal {train['mesh']['losses']}; peak "
+        f"{train['mesh']['max_memory_bytes']} bytes under the mesh "
+        f"({train['plain']['max_memory_bytes']} without; dry-run "
+        f"{dry['train']['memory']['peak_per_device_gb']} GB); state "
+        f"{train['mesh']['state_bytes_on_card']} bytes on the card, "
+        f"dry-run argument bytes {dry['train']['memory']['argument_bytes']}")
+    log(f"[shard] glm4-9b bf16 scoring 4 x 2048 with K4: "
+        f"{score['plain']['score_s']:.4f} s without a mesh, "
+        f"{score['mesh']['score_s']:.4f} s under the mesh (bound "
+        f"{bounds['score'][0]:.4f} s); logits bit-equal; K4 launches "
+        f"{launches['flash_attention']}; parameters and tokens "
+        f"{score['state_bytes_on_card']} bytes on the card, dry-run "
+        f"argument bytes {dry['score']['memory']['argument_bytes']}")
+    log(f"[shard] phase: {time.perf_counter() - t_phase:.3f} s (dry-run "
+        f"rows {t_dry:.3f} s); launches {launches}")
+    return {"launches": launches, "row": row}
+
+
 def run_lm_train_path(device) -> dict:
     """Dense-LM training on the card: the training CLI (20 smoke steps),
     the smoke model's loss falling, the card against the host, the refusal
@@ -4346,6 +4603,8 @@ def main() -> int:
     vlm_path = run_vlm_path(device)
     torch.cuda.empty_cache()
     lm_train_path = run_lm_train_path(device)
+    torch.cuda.empty_cache()
+    shard_path = run_shard_path(device)
     paths = {"compile": compile_path["launches"],
              "runtime": runtime_path["launches"],
              "hmooc2": hmooc2_path["launches"],
@@ -4362,7 +4621,8 @@ def main() -> int:
              "hybrid": hybrid_path["launches"],
              "audio": audio_path["launches"],
              "vlm": vlm_path["launches"],
-             "lm_train": lm_train_path["launches"]}
+             "lm_train": lm_train_path["launches"],
+             "shard": shard_path["launches"]}
     kernels = []
     entries["flash_attention"]["lm_launches_by_body"] = \
         lm_path["row"]["flash_launches_scoring_by_body"]

@@ -16,11 +16,15 @@ The counterpart of the reference's ``archs/blocks.py``.  Conventions:
 * Attention uses the einsum path by default and the hand-written
   flash-attention kernel on the cacheless forward when ``cfg.use_flash``.
 
-The reference's activation-sharding constraints are no-ops without a mesh
-and are dropped.  ``apply_attention(xattn_kv=...)`` attends precomputed
-K/V non-causally, as the reference's does; the encoder–decoder's own
-cross-attention (``archs/encdec.py``) is the reference's float32 einsum
-and does not call it.  The recurrent blocks keep the reference's
+Under a registered mesh (``archs/act_sharding``) each layer takes its
+weights gathered along the batch axes (``gather_weights``), attention
+shards its DTensor queries as the reference's ``_shard_attn_acts`` does,
+and the flash kernel runs on each rank's own heads; without one, or on
+plain tensors, none of this changes anything.
+``apply_attention(xattn_kv=...)`` attends precomputed K/V non-causally,
+as the reference's does; the encoder–decoder's own cross-attention
+(``archs/encdec.py``) is the reference's float32 einsum and does not
+call it.  The recurrent blocks keep the reference's
 semantics, which are not the published models': RWKV-6 has no bonus
 ``u`` term and its output at step t reads the state before token t's
 kᵀv; Mamba materialises its (B, S, din, N) float32 decays and inputs.
@@ -33,9 +37,14 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from ..kernels.flash_attention.ops import flash_attention
-from .common import ArchConfig, DTYPES, init_dense, rope
+from .act_sharding import (BATCH_AXES, constrain, gather_input,
+                           gather_weights, get_activation_mesh, get_pure_dp)
+from .common import (ArchConfig, DTYPES, init_dense, merge_heads, mesh_sizes,
+                     rope, split_heads)
 
 Params = Dict[str, torch.Tensor]
 NEG = -1e30
@@ -73,6 +82,49 @@ def init_attention(gen: torch.Generator, cfg: ArchConfig) -> Params:
 _CHUNK_THRESHOLD = 1 << 26
 
 
+def _shard_attn_acts(x: torch.Tensor) -> torch.Tensor:
+    """Shard (B, H, S, D) attention activations: heads→model when the head
+    count divides the axis, else sequence→model (sequence parallelism);
+    pure-DP jobs shard batch over the whole mesh instead."""
+    mesh = get_activation_mesh()
+    if mesh is None:
+        return x
+    if get_pure_dp():
+        return constrain(x, BATCH_AXES + ("model",), None, None, None)
+    m = mesh_sizes(mesh).get("model", 1)
+    if x.shape[1] % m == 0:
+        return constrain(x, BATCH_AXES, "model", None, None)
+    if x.shape[2] % m == 0:
+        return constrain(x, BATCH_AXES, None, "model", None)
+    return constrain(x, BATCH_AXES, None, None, None)
+
+
+def _flash_local(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 causal: bool) -> torch.Tensor:
+    """The flash kernel on DTensor q, k, v: each rank attends its own
+    heads.  As ``_shard_attn_acts`` splits q, heads go to 'model' (batch
+    to the batch axes), but only when both the query and the KV head
+    counts divide it, so that query head b's KV head b // group lies on
+    the same rank; otherwise the heads are whole on every rank (the
+    sequence is never split: the causal mask spans it)."""
+    mesh = get_activation_mesh()
+    m = mesh_sizes(mesh).get("model", 1)
+    if get_pure_dp():
+        spec = (BATCH_AXES + ("model",), None, None, None)
+    else:
+        heads = "model" if q.shape[1] % m == 0 and k.shape[1] % m == 0 \
+            else None
+        spec = (BATCH_AXES, heads, None, None)
+    q, k, v = (constrain(t, *spec) for t in (q, k, v))
+    attend = local_map(
+        lambda ql, kl, vl: flash_attention(ql, kl, vl, causal=causal),
+        out_placements=list(q.placements),
+        in_placements=(list(q.placements), list(k.placements),
+                       list(v.placements)),
+        device_mesh=mesh)
+    return attend(q, k, v)
+
+
 def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             causal: bool, window: int, kv_len: Optional[int],
             q_start: Optional[int] = None, use_flash: bool) -> torch.Tensor:
@@ -84,7 +136,10 @@ def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     B, Hq, Sq, Dh = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
     if use_flash and kv_len is None and window == 0:
+        if isinstance(q, DTensor):
+            return _flash_local(q, k, v, causal)
         return flash_attention(q, k, v, causal=causal)
+    q = _shard_attn_acts(q)
     if Sq * Skv > _CHUNK_THRESHOLD and Sq > 1:
         return _attend_chunked(q, k, v, causal=causal, window=window,
                                kv_len=kv_len, q_start=q_start)
@@ -162,6 +217,25 @@ def _attend_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return torch.cat(outs, dim=2)[:, :, :Sq]
 
 
+def _cache_write(buf: torch.Tensor, new: torch.Tensor, idx: int
+                 ) -> torch.Tensor:
+    """``new`` (B, H, S, Dh) written into ``buf`` at slots idx … idx + S − 1,
+    in place; returns the buffer.  A DTensor buffer whose slots are split
+    over ranks (the sequence fallback of ``cache_shardings``) cannot take
+    a slice in place: it is gathered along the slots, written, and split
+    again, a new DTensor."""
+    if isinstance(buf, DTensor) and any(
+            isinstance(pl, Shard) and pl.dim == 2 for pl in buf.placements):
+        mesh, placed = buf.device_mesh, buf.placements
+        whole = buf.redistribute(mesh, [
+            Replicate() if isinstance(pl, Shard) and pl.dim == 2 else pl
+            for pl in placed])
+        whole[:, :, idx:idx + new.shape[2]] = new
+        return whole.redistribute(mesh, placed)
+    buf[:, :, idx:idx + new.shape[2]] = new
+    return buf
+
+
 def apply_attention(cfg: ArchConfig, p: Params, x: torch.Tensor,
                     positions: torch.Tensor,
                     cache: Optional[Dict[str, Any]] = None,
@@ -178,34 +252,36 @@ def apply_attention(cfg: ArchConfig, p: Params, x: torch.Tensor,
     encoder K/V: the queries attend all of them (no mask, the flash route
     when ``cfg.use_flash``) and ``cache`` comes back unchanged.
     """
+    p = gather_weights(p)
+    x = gather_input(x)
     B, S, d = x.shape
     hq, hkv, dh = cfg.n_heads, cfg.n_kv, cfg.head_dim
     q = x @ p["wq"]
     if "bq" in p:
         q = q + p["bq"]
-    q = q.reshape(B, S, hq, dh)
+    q = split_heads(q, hq, dh)
     q = rope(q, positions, cfg.rope_theta).transpose(1, 2)
 
     if xattn_kv is not None:
         k, v = xattn_kv
         y = _attend(q, k, v, causal=False, window=0, kv_len=None,
                     use_flash=cfg.use_flash)
-        return y.transpose(1, 2).reshape(B, S, hq * dh) @ p["wo"], cache
+        return merge_heads(y.transpose(1, 2)) @ p["wo"], cache
 
     k = x @ p["wk"]
     v = x @ p["wv"]
     if "bk" in p:
         k = k + p["bk"]
         v = v + p["bv"]
-    k = k.reshape(B, S, hkv, dh)
-    v = v.reshape(B, S, hkv, dh)
+    k = split_heads(k, hkv, dh)
+    v = split_heads(v, hkv, dh)
     k = rope(k, positions, cfg.rope_theta).transpose(1, 2)
     v = v.transpose(1, 2)
 
     if cache is None:
         y = _attend(q, k, v, causal=causal, window=cfg.window, kv_len=None,
                     use_flash=cfg.use_flash)
-        y = y.transpose(1, 2).reshape(B, S, hq * dh)
+        y = merge_heads(y.transpose(1, 2))
         return y @ p["wo"], {"k": k, "v": v, "len": S}
 
     # Cache path: append S new entries at cache["len"] (prefill into the
@@ -217,19 +293,18 @@ def apply_attention(cfg: ArchConfig, p: Params, x: torch.Tensor,
         # in-flight K/V and retain only the last C entries.
         y = _attend(q, k, v, causal=causal, window=cfg.window, kv_len=None,
                     use_flash=cfg.use_flash)
-        y = y.transpose(1, 2).reshape(B, S, hq * dh)
+        y = merge_heads(y.transpose(1, 2))
         return y @ p["wo"], {"k": k[:, :, S - C:], "v": v[:, :, S - C:],
                              "len": C}
     if not 0 <= idx <= C - S:
         raise ValueError(f"KV cache overflow: {S} new entries at {idx} do "
                          f"not fit a capacity of {C}")
-    ck, cv = cache["k"], cache["v"]
-    ck[:, :, idx:idx + S] = k
-    cv[:, :, idx:idx + S] = v
+    ck = _cache_write(cache["k"], k, idx)
+    cv = _cache_write(cache["v"], v, idx)
     kv_len = idx + S
     y = _attend(q, ck, cv, causal=causal, q_start=idx, window=cfg.window,
                 kv_len=kv_len, use_flash=False)
-    y = y.transpose(1, 2).reshape(B, S, hq * dh)
+    y = merge_heads(y.transpose(1, 2))
     return y @ p["wo"], {"k": ck, "v": cv, "len": kv_len}
 
 
@@ -249,6 +324,8 @@ def init_mlp(gen: torch.Generator, cfg: ArchConfig) -> Params:
 
 
 def apply_mlp(cfg: ArchConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+    p = gather_weights(p)
+    x = gather_input(x)
     return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
 
 
@@ -328,9 +405,33 @@ def moe_route(cfg: ArchConfig, p: Params, x: torch.Tensor) -> MoeRoute:
     each expert's start by a left-side search, a slot's rank from its
     place in the sorted order."""
     G, S, _ = x.shape
-    e, k = cfg.n_experts, cfg.top_k
-    dev = x.device
     gval, gidx = moe_gates(cfg, p, x)
+    if isinstance(gidx, DTensor):
+        # DTensor has no rule for searchsorted: the ranks route the whole
+        # batch on replicated expert ids, and the route is replicated.
+        mesh = gidx.device_mesh
+        rep = [Replicate()] * mesh.ndim
+        r = _route(cfg, gval, gidx.redistribute(mesh, rep).to_local(), S)
+        fields = {f: _replicated_like(getattr(r, f), gidx)
+                  for f in ("order", "starts", "counts", "pos", "keep")}
+        return dataclasses.replace(r, gidx=gidx, **fields)
+    return _route(cfg, gval, gidx, S)
+
+
+def _replicated_like(t: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """``t`` replicated on ``ref``'s mesh when ``ref`` is a DTensor."""
+    if not isinstance(ref, DTensor):
+        return t
+    mesh = ref.device_mesh
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+def _route(cfg: ArchConfig, gval: torch.Tensor, gidx: torch.Tensor,
+           S: int) -> MoeRoute:
+    G = gidx.shape[0]
+    e, k = cfg.n_experts, cfg.top_k
+    dev = gidx.device
     e_flat = gidx.reshape(G, S * k)
     order = torch.argsort(e_flat, dim=-1, stable=True)
     e_sorted = torch.gather(e_flat, 1, order)
@@ -383,6 +484,8 @@ def apply_moe(cfg: ArchConfig, p: Params, x: torch.Tensor,
 
     ``einsum``: the (G, S, E, C) one-hot dispatch.
     """
+    p = gather_weights(p)
+    x = gather_input(x)
     if impl == "einsum":
         return _moe_einsum(cfg, p, x)
     if impl != "sort":
@@ -391,7 +494,7 @@ def apply_moe(cfg: ArchConfig, p: Params, x: torch.Tensor,
     e, k = cfg.n_experts, cfg.top_k
     r = moe_route(cfg, p, x)
     C = r.capacity
-    c = torch.arange(C, device=x.device)
+    c = _replicated_like(torch.arange(C, device=x.device), r.starts)
     slot = (r.starts[:, :, None] + c).clamp(max=S * k - 1)   # (G, E, C)
     tok = torch.gather(r.order, 1, slot.reshape(G, e * C)) // k
     buf = torch.gather(x, 1, tok[..., None].expand(G, e * C, d))
@@ -405,7 +508,8 @@ def apply_moe(cfg: ArchConfig, p: Params, x: torch.Tensor,
     pos = torch.gather(r.pos, 2, by_e).clamp(max=C - 1)
     w = (torch.gather(r.gval, 2, by_e).to(x.dtype)
          * torch.gather(r.keep, 2, by_e).to(x.dtype))
-    g = torch.arange(G, device=x.device)[:, None, None]
+    g = _replicated_like(torch.arange(G, device=x.device)[:, None, None],
+                         r.starts)
     rows = gidx * (G * C) + g * C + pos                      # (G, S, k)
     out = None
     for j in range(k):
@@ -479,6 +583,8 @@ def apply_mamba(cfg: ArchConfig, p: Params, x: torch.Tensor,
     chunk to chunk and scanned within each, else one scan covers all of S
     (decode, and prefills of other lengths).
     """
+    p = gather_weights(p)
+    x = gather_input(x)
     B, S, d = x.shape
     din = cfg.expand * d
     n = cfg.d_state
@@ -571,6 +677,8 @@ def apply_rwkv_time(cfg: ArchConfig, p: Params, x: torch.Tensor,
     everything else the step-by-step scan, a Python loop of four ops a
     token.
     """
+    p = gather_weights(p)
+    x = gather_input(x)
     B, S, d = x.shape
     dh = cfg.rwkv_head_dim
     H = d // dh
@@ -580,13 +688,13 @@ def apply_rwkv_time(cfg: ArchConfig, p: Params, x: torch.Tensor,
 
     def mix(mu):
         return x + (xs - x) * mu
-    r = (mix(p["mu_r"]) @ p["r_proj"]).reshape(B, S, H, dh)
-    k = (mix(p["mu_k"]) @ p["k_proj"]).reshape(B, S, H, dh)
-    v = (mix(p["mu_v"]) @ p["v_proj"]).reshape(B, S, H, dh)
+    r = split_heads(mix(p["mu_r"]) @ p["r_proj"], H, dh)
+    k = split_heads(mix(p["mu_k"]) @ p["k_proj"], H, dh)
+    v = split_heads(mix(p["mu_v"]) @ p["v_proj"], H, dh)
     g = F.silu(x @ p["g_proj"])
     w = torch.exp(-torch.exp((mix(p["mu_w"]) @ p["w_proj"]).to(torch.float32)
                              + p["w_bias"]))                 # (B, S, D) decay
-    w = w.reshape(B, S, H, dh)
+    w = split_heads(w, H, dh)
 
     S0 = state["S"] if state is not None else torch.zeros(
         (B, H, dh, dh), dtype=torch.float32, device=x.device)
@@ -594,7 +702,7 @@ def apply_rwkv_time(cfg: ArchConfig, p: Params, x: torch.Tensor,
 
     if cfg.rwkv_impl == "chunked" and S > 1 and S % cfg.rwkv_chunk == 0:
         y, S_last = rwkv_wkv_chunked(w, kf, vf, rf, S0, chunk=cfg.rwkv_chunk)
-        y = y.reshape(B, S, d)
+        y = merge_heads(y)
     else:
         # Time-major copies, so each step reads contiguous (B, H, dh) rows.
         wt, kt, vt, rt = (t.transpose(0, 1).contiguous()
@@ -604,7 +712,7 @@ def apply_rwkv_time(cfg: ArchConfig, p: Params, x: torch.Tensor,
             ys.append(torch.einsum("bhk,bhkv->bhv", rt[t], S_last))
             S_last = S_last * wt[t][..., None] \
                 + kt[t][..., None] * vt[t][..., None, :]
-        y = torch.stack(ys, dim=1).reshape(B, S, d)
+        y = merge_heads(torch.stack(ys, dim=1))
     y = (y.to(x.dtype) * g) @ p["o_proj"]
     return y, {"S": S_last, "x_prev": x[:, -1:]}
 
@@ -612,6 +720,8 @@ def apply_rwkv_time(cfg: ArchConfig, p: Params, x: torch.Tensor,
 def apply_rwkv_channel(cfg: ArchConfig, p: Params, x: torch.Tensor
                        ) -> torch.Tensor:
     """RWKV-6 channel mix as the reference has it: relu(x @ ck)² @ cv."""
+    p = gather_weights(p)
+    x = gather_input(x)
     return torch.square(F.relu(x @ p["ck_proj"])) @ p["cv_proj"]
 
 

@@ -30,8 +30,10 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from .act_sharding import gather_input, gather_weight, gather_weights
 from .blocks import apply_attention, apply_mlp, init_attention, init_mlp
-from .common import ArchConfig, DTYPES, init_dense, rmsnorm
+from .common import (ArchConfig, DTYPES, embed_tokens, init_dense,
+                     merge_heads, rmsnorm, split_heads)
 from .lm import _frozen, _params
 
 __all__ = ["EncDec"]
@@ -55,17 +57,19 @@ def _xattn_apply(cfg: ArchConfig, p: Params, x: torch.Tensor,
     """Cross-attention of (B, S, d) decoder states over (B, Se, d) encoder
     output: K/V projected from it on each call, every head attending every
     frame, logits and probabilities in float32."""
+    p = gather_weights(p)
+    x, enc_out = gather_input(x), gather_input(enc_out)
     B, S, _ = x.shape
     h, dh = cfg.n_heads, cfg.head_dim
     Se = enc_out.shape[1]
-    q = (x @ p["wq"]).reshape(B, S, h, dh).transpose(1, 2)
-    k = (enc_out @ p["wk"]).reshape(B, Se, h, dh).transpose(1, 2)
-    v = (enc_out @ p["wv"]).reshape(B, Se, h, dh).transpose(1, 2)
+    q = split_heads(x @ p["wq"], h, dh).transpose(1, 2)
+    k = split_heads(enc_out @ p["wk"], h, dh).transpose(1, 2)
+    v = split_heads(enc_out @ p["wv"], h, dh).transpose(1, 2)
     logits = torch.einsum("bhqd,bhkd->bhqk", q.to(torch.float32),
                           k.to(torch.float32)) / math.sqrt(dh)
     w = torch.softmax(logits, dim=-1)
     y = torch.einsum("bhqk,bhkd->bhqd", w, v.to(torch.float32))
-    y = y.to(x.dtype).transpose(1, 2).reshape(B, S, h * dh)
+    y = merge_heads(y.to(x.dtype).transpose(1, 2))
     return y @ p["wo"]
 
 
@@ -201,7 +205,7 @@ class EncDec(nn.Module):
         if dec_caches is not None and len(dec_caches) != len(self.dec_layers):
             raise ValueError(f"{len(dec_caches)} layer caches for "
                              f"{len(self.dec_layers)} decoder layers")
-        x = self.embed[tokens]
+        x = embed_tokens(self.embed, tokens)
         if positions is None:
             positions = torch.arange(S, device=self.device).expand(B, S)
         else:
@@ -219,7 +223,8 @@ class EncDec(nn.Module):
         if last_only:
             x = x[:, -1:]   # serve prefill: only next-token logits needed
         x = rmsnorm(x, self.norm_f, cfg.norm_eps)
-        return x @ self.lm_head, {"enc_out": enc_out, "dec": new_dec}
+        return x @ gather_weight(self.lm_head), {"enc_out": enc_out,
+                                                  "dec": new_dec}
 
     def loss(self, batch: Mapping[str, Any]) -> torch.Tensor:
         """Mean next-token cross entropy over labels ≥ 0 (float32), the

@@ -43,7 +43,8 @@ from torch.utils.checkpoint import checkpoint
 from .blocks import (apply_attention, apply_mamba, apply_mlp, apply_moe,
                      apply_rwkv_channel, apply_rwkv_time, init_attention,
                      init_mamba, init_mlp, init_moe, init_rwkv)
-from .common import ArchConfig, DTYPES, init_dense, rmsnorm
+from .act_sharding import BATCH_AXES, constrain, gather_weight
+from .common import ArchConfig, DTYPES, embed_tokens, init_dense, rmsnorm
 
 __all__ = ["LM", "LM_FAMILIES", "params_from_reference",
            "params_to_reference", "reference_key"]
@@ -239,7 +240,8 @@ class LM(nn.Module):
         return self.embed.device
 
     def head(self) -> torch.Tensor:
-        return self.embed.T if self.cfg.tie_embeddings else self.lm_head
+        return gather_weight(self.embed.T if self.cfg.tie_embeddings
+                             else self.lm_head)
 
     def _run_layers(self, tokens, caches: Optional[Cache],
                     positions: Optional[torch.Tensor], patches=None
@@ -252,7 +254,7 @@ class LM(nn.Module):
         if caches is not None and len(caches) != len(self.layers):
             raise ValueError(f"{len(caches)} layer caches for "
                              f"{len(self.layers)} layers")
-        x = self.embed[tokens]
+        x = embed_tokens(self.embed, tokens)
         n_patches = 0
         if self.cfg.family == "vlm" and patches is not None:
             patches = torch.as_tensor(patches, device=self.device)
@@ -264,6 +266,7 @@ class LM(nn.Module):
         else:
             positions = torch.as_tensor(positions, device=self.device)
         new_caches = []
+        x = self._shard_carry(x)
         for i, layer in enumerate(self.layers):
             if caches is None and self._remat(x):
                 x, c = checkpoint(layer, self.cfg, x, positions, None,
@@ -271,8 +274,23 @@ class LM(nn.Module):
             else:
                 x, c = layer(self.cfg, x, positions,
                              None if caches is None else caches[i])
+            x = self._shard_carry(x)
             new_caches.append(c)
         return x[:, n_patches:], new_caches
+
+    def _shard_carry(self, y: torch.Tensor) -> torch.Tensor:
+        """The reference's constraint on the layer carry (the per-layer
+        saved activation under remat), a no-op without a mesh.  "model":
+        split d_model over TP; "seq": sequence parallelism; "none": batch
+        axes only."""
+        cfg = self.cfg
+        baxes = BATCH_AXES + ("model",) if cfg.pure_dp else BATCH_AXES
+        mode = "none" if cfg.pure_dp else cfg.carry_sharding
+        if mode == "model":
+            return constrain(y, baxes, None, "model")
+        if mode == "seq":
+            return constrain(y, baxes, "model", None)
+        return constrain(y, baxes, None, None)
 
     def _remat(self, x: torch.Tensor) -> bool:
         """Recompute a layer in the backward pass: ``remat="block"``, and

@@ -18,7 +18,7 @@ import torch
 from ..device import DeviceLike, resolve_device
 from torch import nn
 
-from .common import ArchConfig
+from .common import ArchConfig, MetaGenerator
 from .encdec import EncDec
 from .lm import LM, LM_FAMILIES
 
@@ -60,12 +60,15 @@ def build_model(cfg: ArchConfig, device: DeviceLike = None,
     """The model of ``cfg`` (an :class:`EncDec` for the audio family, an
     :class:`LM` otherwise) with weights drawn on ``device`` (``None``: the
     CUDA card) from ``generator`` (default: seeded with 0 on that device).
+    On ``device="meta"`` the model has shapes and dtypes and no values.
     An unknown family raises ``ValueError``.
     """
     if cfg.family != "audio" and cfg.family not in LM_FAMILIES:
         raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}")
     dev = resolve_device(device)
-    if generator is None:
+    if dev.type == "meta":
+        generator = MetaGenerator()
+    elif generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
     elif generator.device.type != dev.type:
         raise ValueError(f"generator on {generator.device}, model on {dev}")

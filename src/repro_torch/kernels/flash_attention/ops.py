@@ -128,6 +128,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"q on {q.device}, k on {k.device}, v on {v.device}")
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal)
+    if q.device.type == "meta":
+        # Shapes only (the dry-run): PyTorch's fused attention op at the
+        # same shapes, whose FLOPs and bytes a counter reads as a fused
+        # kernel's.  No launch.
+        g = q.shape[1] // k.shape[1]
+        return torch.ops.aten._scaled_dot_product_flash_attention(
+            q, k.repeat_interleave(g, 1), v.repeat_interleave(g, 1),
+            is_causal=causal)[0]
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     if D > MAX_D:

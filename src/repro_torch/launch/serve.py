@@ -6,7 +6,10 @@ the published widths) with weights from ``--seed`` on the CUDA card,
 prefills a batch of random prompts and decodes greedily.  A VLM model's
 patch embeddings and an audio model's frames are drawn after the tokens
 from the same numpy stream; the patches take the cache's first slots.
-The flags and their defaults are the reference's.
+The flags and their defaults are the reference's.  As the reference's
+CLI, it serves under the host mesh (``launch/mesh.make_host_mesh``):
+every rank of the current process group, or a one-process group it
+initialises and ends.
 """
 from __future__ import annotations
 
@@ -16,10 +19,13 @@ from typing import Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from ..archs.act_sharding import set_activation_mesh
 from ..archs.registry import ARCH_IDS, build_model, get_config, \
     get_smoke_config
 from ..device import DeviceLike, resolve_device
+from ..launch.mesh import init_host_world, make_host_mesh
 from ..train.serve import make_serve_fns
 
 
@@ -43,7 +49,18 @@ def main(argv: Optional[Sequence[str]] = None,
         args.seed))
     n_patches = cfg.n_patches if cfg.family == "vlm" else 0
     max_len = args.prompt_len + args.gen + n_patches
-    sf = make_serve_fns(model)
+    owns_world = init_host_world(dev)
+    try:
+        return _serve(args, cfg, model, dev, n_patches, max_len)
+    finally:
+        set_activation_mesh(None)
+        if owns_world:
+            dist.destroy_process_group()
+
+
+def _serve(args, cfg, model, dev, n_patches: int, max_len: int
+           ) -> np.ndarray:
+    sf = make_serve_fns(model, mesh=make_host_mesh(device=dev))
 
     rng = np.random.default_rng(args.seed)
     tokens = torch.from_numpy(

@@ -20,7 +20,7 @@ __all__ = ["SHAPES", "ShapeCell", "cell_applicable", "train_input_specs",
 @dataclasses.dataclass(frozen=True)
 class ShapeCell:
     name: str
-    kind: str          # "train" | "prefill" | "decode"
+    kind: str          # "train" | "prefill" | "decode" | "score"
     seq_len: int
     global_batch: int
 
@@ -60,7 +60,7 @@ def train_input_specs(cfg: ArchConfig, cell: ShapeCell
 def serve_input_specs(cfg: ArchConfig, cell: ShapeCell
                       ) -> Dict[str, torch.Tensor]:
     B, S = cell.global_batch, cell.seq_len
-    if cell.kind == "prefill":
+    if cell.kind in ("prefill", "score"):
         out = {"tokens": _spec((B, S), torch.int32)}
         if cfg.family == "vlm":
             out["patches"] = _spec((B, cfg.n_patches, cfg.d_model),

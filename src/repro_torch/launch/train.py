@@ -4,7 +4,11 @@ Trains a language model on the synthetic token stream: smoke size by
 default, the published widths with ``--full``, on the CUDA card unless
 ``--device cpu``.  Weights are drawn from ``--seed``, as is the data.  The
 flags and the lines printed are the reference's; checkpoints
-(``--ckpt-dir``, ``--ckpt-every``) are in its format.
+(``--ckpt-dir``, ``--ckpt-every``) are in its format.  As the reference's
+CLI, it trains under the host mesh (``launch/mesh.make_host_mesh``):
+every rank of the current process group, or a one-process group it
+initialises and ends; the parameters and optimizer state it returns are
+whole on every rank.
 """
 from __future__ import annotations
 
@@ -13,12 +17,16 @@ import time
 from typing import Any, Dict, Optional, Sequence
 
 import torch
+import torch.distributed as dist
 
+from ..archs.act_sharding import set_activation_mesh
 from ..archs.registry import ARCH_IDS, build_model, get_config, \
     get_smoke_config
 from ..data.pipeline import data_iterator
 from ..device import resolve_device
+from ..launch.mesh import init_host_world, make_host_mesh
 from ..train.optimizer import OptConfig
+from ..train.sharding import full_tensors
 from ..train.train_loop import train_loop
 
 
@@ -50,10 +58,20 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
                         moment_dtype=cfg.moment_dtype)
     it = data_iterator(cfg, global_batch=args.batch, seq_len=args.seq,
                        seed=args.seed)
-    t0 = time.time()
-    out = train_loop(model, it, steps=args.steps, opt_cfg=opt_cfg,
-                     accum=args.accum, checkpoint_dir=args.ckpt_dir,
-                     checkpoint_every=args.ckpt_every)
+    owns_world = init_host_world(dev)
+    try:
+        mesh = make_host_mesh(device=dev)
+        t0 = time.time()
+        out = train_loop(model, it, steps=args.steps, mesh=mesh,
+                         opt_cfg=opt_cfg, accum=args.accum,
+                         checkpoint_dir=args.ckpt_dir,
+                         checkpoint_every=args.ckpt_every)
+        out["params"] = full_tensors(out["params"])
+        out["opt_state"] = full_tensors(out["opt_state"])
+    finally:
+        set_activation_mesh(None)
+        if owns_world:
+            dist.destroy_process_group()
     hist = out["history"]
     print(f"\n{args.arch}: {args.steps} steps in {time.time()-t0:.1f}s")
     for h in hist[:3] + hist[-3:]:

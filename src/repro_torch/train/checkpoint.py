@@ -14,6 +14,11 @@ Leaf paths are the reference's: ``params/embed``, ``params/layers/attn/wq``
 and optimizer state by state-dict name) is mapped onto that tree by
 ``params_to_reference`` / ``opt_state_to_reference`` and back.  bfloat16
 leaves go through a 16-bit integer view, so nothing needs ``ml_dtypes``.
+
+A state of DTensors (a step under a mesh) is saved whole: every rank
+gathers the full values and rank 0 writes.  A checkpoint restores onto
+any mesh, whatever the mesh it was saved from: the values are read whole
+and placed by the shardings given, or as the tree they replace is placed.
 """
 from __future__ import annotations
 
@@ -24,9 +29,12 @@ from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 from ..archs.lm import params_from_reference, params_to_reference
 from .optimizer import opt_state_from_reference, opt_state_to_reference
+from .sharding import NamedSharding, full_tensors, tree_map
 
 __all__ = ["save_checkpoint", "restore_checkpoint", "latest_step"]
 
@@ -64,8 +72,8 @@ def _from_raw(raw: np.ndarray, dtype: str, shape) -> torch.Tensor:
 
 
 def _place(got: Any, like: Any, path: str = "") -> Any:
-    """``got`` in ``like``'s structure, each tensor on ``like``'s device;
-    a missing leaf or another shape raises."""
+    """``got`` in ``like``'s structure, each tensor on ``like``'s (local)
+    device; a missing leaf or another shape raises."""
     if isinstance(like, Mapping):
         if sorted(got) != sorted(like):
             missing = sorted(set(like) ^ set(got))
@@ -82,7 +90,25 @@ def save_checkpoint(ckpt_dir: str, step: int, params: Mapping[str, Any],
                     opt_state: Optional[Mapping[str, Any]] = None,
                     extra: Optional[Dict[str, Any]] = None) -> str:
     """Write ``params`` (and ``opt_state``) as ``step_<step>`` and point
-    ``LATEST`` at it; returns the step directory."""
+    ``LATEST`` at it; returns the step directory.  With DTensors in the
+    state every rank of the default process group calls this: the full
+    values are gathered, rank 0 writes, and the others wait for it."""
+    final = os.path.join(ckpt_dir, f"step_{step}")
+    if any(isinstance(t, DTensor) for t in _flatten(
+            {"p": dict(params), "o": dict(opt_state or {})}).values()):
+        params = full_tensors(dict(params))
+        opt_state = None if opt_state is None else full_tensors(
+            dict(opt_state))
+        if dist.get_rank() == 0:
+            _write(ckpt_dir, step, params, opt_state, extra)
+        dist.barrier()
+        return final
+    return _write(ckpt_dir, step, params, opt_state, extra)
+
+
+def _write(ckpt_dir: str, step: int, params: Mapping[str, Any],
+           opt_state: Optional[Mapping[str, Any]],
+           extra: Optional[Dict[str, Any]]) -> str:
     os.makedirs(ckpt_dir, exist_ok=True)
     tmp = os.path.join(ckpt_dir, f".tmp_step_{step}")
     final = os.path.join(ckpt_dir, f"step_{step}")
@@ -127,6 +153,7 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
 
 
 def restore_checkpoint(ckpt_dir: str, tree_like: Mapping[str, Any],
+                       shardings: Optional[Mapping[str, Any]] = None,
                        step: Optional[int] = None
                        ) -> Tuple[Dict[str, Any], int]:
     """Restore the checkpoint at ``step`` (default: ``LATEST``).
@@ -135,6 +162,13 @@ def restore_checkpoint(ckpt_dir: str, tree_like: Mapping[str, Any],
     optionally ``"opt"`` (an optimizer state); the result has its
     structure, with the checkpoint's dtypes, each tensor on the device of
     its counterpart there.  A missing leaf or another shape raises.
+
+    ``shardings`` (the reference's argument: a tree like ``tree_like``'s of
+    ``train/sharding.NamedSharding``, say ``{"params":
+    params_shardings(...), "opt": opt_shardings(...)}``) places each
+    leaf as a DTensor on its mesh, which need not be the mesh the
+    checkpoint was saved from; without it, a leaf that is a DTensor in
+    ``tree_like`` is placed as that one is, any other stays whole.
     """
     if step is None:
         step = latest_step(ckpt_dir)
@@ -157,4 +191,22 @@ def restore_checkpoint(ckpt_dir: str, tree_like: Mapping[str, Any],
     got = {"params": params_from_reference(tree["params"])}
     if "opt" in tree_like:
         got["opt"] = opt_state_from_reference(tree["opt"])
-    return _place(got, tree_like), step
+    got = _place(got, tree_like)
+
+    def put(x: torch.Tensor, like: Any, sh: Optional[NamedSharding]):
+        if sh is not None:
+            return distribute_tensor(x, sh.mesh, sh.placements)
+        if isinstance(like, DTensor):
+            return distribute_tensor(x, like.device_mesh, like.placements)
+        return x
+    return tree_map(put, got, tree_like,
+                    _complete(shardings or {}, got)), step
+
+
+def _complete(shardings: Any, tree: Any) -> Any:
+    """``shardings`` in ``tree``'s structure, ``None`` where it has no
+    entry."""
+    if isinstance(tree, Mapping):
+        return {k: _complete(shardings.get(k) if isinstance(
+            shardings, Mapping) else None, v) for k, v in tree.items()}
+    return shardings if isinstance(shardings, NamedSharding) else None

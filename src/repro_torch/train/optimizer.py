@@ -68,11 +68,11 @@ def wsd_schedule(cfg: OptConfig, step: torch.Tensor) -> torch.Tensor:
 
 
 def opt_init(params: Mapping[str, torch.Tensor], cfg: OptConfig) -> Params:
-    """Zero moments in ``cfg.moment_dtype`` beside each parameter, and an
-    int32 step 0 on their device."""
+    """Zero moments in ``cfg.moment_dtype`` beside each parameter (a
+    DTensor parameter's are DTensors placed as it is), and an int32 step 0
+    on their device."""
     mdt = DTYPES[cfg.moment_dtype]
-    zeros = {n: torch.zeros(p.shape, dtype=mdt, device=p.device)
-             for n, p in params.items()}
+    zeros = {n: torch.zeros_like(p, dtype=mdt) for n, p in params.items()}
     device = next(iter(params.values())).device
     return {"m": zeros, "v": {n: torch.zeros_like(z) for n, z in zeros.items()},
             "step": torch.zeros((), dtype=torch.int32, device=device)}

@@ -17,7 +17,11 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
+
 from repro_torch.archs import blocks as arch_blocks
+from repro_torch.archs.act_sharding import set_activation_mesh
 from repro_torch.archs.registry import (build_model, get_config,
                                         get_smoke_config)
 from repro_torch.data.pipeline import data_iterator as lm_data_iterator
@@ -30,6 +34,7 @@ from repro_torch.core.moo.pareto import (_f32_tie_hazard,
                                          compact_bank, pareto_mask,
                                          pareto_mask_np, pareto_masks_fast)
 from repro_torch.examples import quickstart
+from repro_torch.launch.mesh import init_host_world, make_host_mesh
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.fused_solve import ops as fused_ops
@@ -1317,3 +1322,62 @@ def test_lm_train_refuses_flash_on_card(cuda_device):
     with pytest.raises(RuntimeError, match="no backward pass"):
         model.loss(batch)
     assert flash_ops.LAUNCHES == before
+
+
+# Sharding on one card: make_host_mesh()'s (1, 1) mesh over a one-rank
+# NCCL world.  Every DTensor is whole on the one rank, so the sharded
+# steps and forwards run the same kernels on the same values.
+
+@pytest.fixture
+def host_mesh(cuda_device):
+    owns = init_host_world(cuda_device)
+    try:
+        yield make_host_mesh(device=cuda_device)
+    finally:
+        set_activation_mesh(None)
+        if owns:
+            dist.destroy_process_group()
+
+
+def test_lm_train_steps_under_host_mesh_on_card(cuda_device, host_mesh):
+    """3 float32 smoke glm4-9b steps with accum 2 under the (1, 1) NCCL mesh:
+    losses, learning rates and gradient norms bit-equal to the same steps
+    without a mesh, the parameters DTensors."""
+    assert host_mesh.shape == (1, 1) and dist.get_backend() == "nccl"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_smoke_config("glm4-9b", dtype="float32")
+    it = lm_data_iterator(cfg, global_batch=8, seq_len=32, seed=1)
+    batches = [next(it) for _ in range(3)]
+    rows = {}
+    for tag, mesh in (("plain", None), ("mesh", host_mesh)):
+        set_activation_mesh(None)
+        model = build_model(cfg, cuda_device)
+        fns = make_lm_train_step(model, LMOptConfig(lr=1e-3, total_steps=100,
+                                                    warmup_steps=3),
+                                 mesh=mesh, accum=2)
+        params, state = fns.init()
+        assert all(isinstance(p, DTensor) for p in params.values()) == \
+            (mesh is not None)
+        got = []
+        for b in batches:
+            params, state, m = fns.step(params, state, b)
+            got.append([float(m[k]) for k in ("loss", "lr", "grad_norm")])
+        rows[tag] = got
+    assert rows["mesh"] == rows["plain"]
+
+
+def test_lm_score_under_host_mesh_on_card(cuda_device, host_mesh):
+    """The smoke glm4-9b's bf16 scoring forward with K4 under the (1, 1)
+    NCCL mesh: one launch a layer, logits bit-equal to the unsharded
+    forward's."""
+    cfg = get_smoke_config("glm4-9b", use_flash=True)
+    model = build_model(cfg, cuda_device)
+    rng = np.random.default_rng(3)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 64))).to(
+        cuda_device)
+    want = make_lm_serve_fns(model).score(tokens)
+    before = flash_ops.LAUNCHES
+    got = make_lm_serve_fns(model, mesh=host_mesh).score(tokens)
+    assert flash_ops.LAUNCHES - before == cfg.n_layers
+    assert not isinstance(got, DTensor)
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))

@@ -16,6 +16,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax
 import jax.numpy as jnp
 
 from repro.kernels.flash_attention.ops import (
@@ -42,9 +43,36 @@ def _port(q, k, v, causal):
     return out.numpy()
 
 
+@pytest.fixture
+def float32_products():
+    """The process-wide settings a float32 product reads, pinned for the
+    test: full float32 products in PyTorch (oneDNN may otherwise take
+    bfloat16 or TF32 for them) and one intra-op thread, and in JAX
+    float32 products; restored afterwards.  A worker of the suite runs
+    other files first, and these settings are the process's."""
+    saved = (torch.get_num_threads(), torch.get_float32_matmul_precision(),
+             torch.backends.mkldnn.matmul.fp32_precision)
+    torch.set_num_threads(1)
+    torch.set_float32_matmul_precision("highest")
+    torch.backends.mkldnn.matmul.fp32_precision = "ieee"
+    with jax.default_matmul_precision("float32"):
+        yield
+    torch.set_num_threads(saved[0])
+    torch.set_float32_matmul_precision(saved[1])
+    torch.backends.mkldnn.matmul.fp32_precision = saved[2]
+
+
+def _diffs(got, pallas, oracle):
+    """The three outputs' largest pairwise differences, so a failure says
+    which side moved."""
+    return (f"port-pallas {np.abs(got - pallas).max():.3g}, port-oracle "
+            f"{np.abs(got - oracle).max():.3g}, pallas-oracle "
+            f"{np.abs(pallas - oracle).max():.3g}")
+
+
 @pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv,D,causal", SHAPES)
 def test_flash_attention_f32_matches_reference(B, Hq, Hkv, Sq, Skv, D,
-                                               causal):
+                                               causal, float32_products):
     q, k, v = _inputs(B, Hq, Hkv, Sq, Skv, D, seed=Sq + Skv)
     before = port_ops.LAUNCHES
     got = _port(q, k, v, causal)
@@ -53,8 +81,10 @@ def test_flash_attention_f32_matches_reference(B, Hq, Hkv, Sq, Skv, D,
     pallas = np.asarray(jax_flash(jq, jk, jv, causal=causal))
     oracle = np.asarray(jax_attention_ref(jq, jk, jv, causal=causal))
     assert got.shape == (B, Hq, Sq, D) and got.dtype == np.float32
-    np.testing.assert_allclose(got, pallas, atol=2e-5, rtol=0)
-    np.testing.assert_allclose(got, oracle, atol=2e-5, rtol=0)
+    np.testing.assert_allclose(got, pallas, atol=2e-5, rtol=0,
+                               err_msg=_diffs(got, pallas, oracle))
+    np.testing.assert_allclose(got, oracle, atol=2e-5, rtol=0,
+                               err_msg=_diffs(got, pallas, oracle))
 
 
 def test_flash_attention_bf16_matches_reference():
