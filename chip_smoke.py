@@ -102,7 +102,18 @@ default model and solver widths:
   unsharded ones; and the dry-run's rows for those two cells
   (``launch/dryrun.py`` on a fake one-rank world, before the NCCL world
   exists): their argument bytes against the bytes the same state holds
-  on the card, their roofline bound against the measured times.
+  on the card, their roofline bound against the measured times;
+* the port's invariant suite (``analysis``):
+  ``python -m repro_torch.analysis --strict --json src/repro_torch`` in a
+  subprocess on this machine, which must exit 0, and every host
+  synchronisation PyTorch's sync debug mode saw on the budgeted calls
+  above (``SYNC_BUDGET``: the compile-time path's K1 callers, each
+  runtime round of ``runtime`` and ``serve``, each HMOOC2 aggregation,
+  ``train_model``, an ``lm_train`` step and one ``lm`` decode step),
+  located at its innermost frame in ``src/repro_torch/``, held to the
+  suite: each site must be a TH001/TH002 finding that a ``repro_torch:``
+  marker suppresses, and each path's syncs a call must stay within its
+  budget.
 
 Each path runs with every kernel's launch count set to 0 just before it
 and read just after; the script fails if a kernel of a path was not
@@ -153,12 +164,15 @@ import gc
 import io
 import json
 import math
+import os
 import pickle
 import subprocess
 import sys
 import tempfile
 import time
+import traceback
 import warnings
+from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -506,6 +520,16 @@ TRAIN_STEP_RTOL = 2e-6
 # Host synchronisations allowed in one train_model call: the losses are
 # read back once, after the loop.
 TRAIN_MAX_SYNCS = 1
+# Host synchronisations one call of each path's budgeted function may make
+# (PERF.md §3): a K1 caller one (its masks read back), a runtime round
+# one (runtime and serve), an HMOOC2 aggregation two (the tie flag, then
+# K3's results), train_model one, an LM train step and an LM decode step
+# none.  count_syncs fills SYNC_SITES on the card; the analysis phase
+# holds every site to the port's suppressed TH001/TH002 findings.
+SYNC_BUDGET = {"compile": 1, "runtime": 1, "serve": 1, "hmooc2": 2,
+               "train": TRAIN_MAX_SYNCS, "lm_train": 0, "lm": 0}
+SYNC_SITES: dict = {}
+ANALYSIS_TIMEOUT_S = 300
 # The baselines phase: 2 TPC-H queries in the fine-grained flat space, at
 # benchmarks/bench_moo.py's budgets, beside HMOOC3 on the same objectives.
 BASELINE_QUERIES = 2
@@ -719,18 +743,46 @@ def host_ms(fn, iters: int, warm: int = 5) -> float:
     return (time.perf_counter() - t0) / iters * 1e3
 
 
-def count_syncs(fn):
+def sync_site(stack) -> tuple:
+    """(path, line) of the innermost frame of ``stack`` in the port's
+    package (``src/repro_torch/...``); else of the innermost frame."""
+    for frame in reversed(stack):
+        path = Path(frame.filename).as_posix()
+        if "/src/repro_torch/" in path:
+            rel = path.split("/src/repro_torch/", 1)[1]
+            return f"src/repro_torch/{rel}", frame.lineno
+    return stack[-1].filename, stack[-1].lineno
+
+
+def count_syncs(fn, path: str = None):
     """(fn's result, the host synchronisations it made): PyTorch's sync
-    debug mode, on only during the call."""
-    with warnings.catch_warnings(record=True) as caught:
+    debug mode, on only during the call.  With ``path``, the call and
+    the site of each synchronisation (``sync_site`` of the stack the
+    warning was raised from) are added to ``SYNC_SITES[path]``, which
+    the ``[analysis]`` phase holds to the port's TH001/TH002 findings."""
+    sites = []
+
+    def show(message, category, filename, lineno, file=None, line=None):
+        if "called a synchronizing" in str(message):
+            sites.append(sync_site(traceback.extract_stack()))
+
+    with warnings.catch_warnings(record=True):
         warnings.simplefilter("always")
+        warnings.showwarning = show
         torch.cuda.set_sync_debug_mode("warn")
         try:
             out = fn()
         finally:
             torch.cuda.set_sync_debug_mode(0)
-    return out, sum("called a synchronizing" in str(w.message)
-                    for w in caught)
+    if path is not None:
+        rec = SYNC_SITES.setdefault(path, {"calls": 0, "syncs": 0,
+                                           "max_per_call": 0,
+                                           "sites": Counter()})
+        rec["calls"] += 1
+        rec["syncs"] += len(sites)
+        rec["max_per_call"] = max(rec["max_per_call"], len(sites))
+        rec["sites"].update(sites)
+    return out, len(sites)
 
 
 def device_busy_ms(fn) -> float:
@@ -1575,6 +1627,11 @@ def run_main_path(device, n_queries: int = 32,
     timers = Timers()
     largest = []
 
+    def synced(fn):
+        """``fn`` with its host syncs recorded under the compile path."""
+        return lambda *a, **kw: count_syncs(lambda: fn(*a, **kw),
+                                            "compile")[0]
+
     def segments_seen(F, valid):
         if not largest or F.numel() > largest[0][0].numel():
             largest[:] = [(F.clone(), valid.clone())]
@@ -1585,8 +1642,8 @@ def run_main_path(device, n_queries: int = 32,
             model.predict_rows, model.embed_many)
     seg_orig = orig[3]
     service_mod.fused_stage_eval = timers.wrap("stage_eval", orig[0])
-    hmooc.pareto_mask_fast = timers.wrap("pareto_masks", orig[1])
-    hmooc.pareto_masks_fast = timers.wrap("pareto_masks", orig[2])
+    hmooc.pareto_mask_fast = timers.wrap("pareto_masks", synced(orig[1]))
+    hmooc.pareto_masks_fast = timers.wrap("pareto_masks", synced(orig[2]))
     pareto_pkg.pareto_filter_segments = segments_seen
     model.predict_rows = timers.wrap("predict_rows", orig[4])
     model.embed_many = timers.wrap("embed_many", orig[5])
@@ -1692,7 +1749,8 @@ def run_runtime_path(device, model_subq, compiled: dict) -> dict:
     def weighted_pick(Fs, weights, **kw):
         if not largest or sum(map(len, Fs)) > sum(map(len, largest[0][0])):
             largest[:] = [(list(Fs), np.array(weights))]
-        out, syncs = count_syncs(lambda: timed_pick(Fs, weights, **kw))
+        out, syncs = count_syncs(lambda: timed_pick(Fs, weights, **kw),
+                                 "runtime")
         picks["calls"] += 1
         picks["syncs"] += syncs
         return out
@@ -1798,20 +1856,16 @@ def run_hmooc2_path(device, model, n_queries: int = 32) -> dict:
     def aggregate(Uc, pool, F_bank, idx_bank, method, **kw):
         if method != "hmooc2":
             return agg_orig(Uc, pool, F_bank, idx_bank, method, **kw)
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            torch.cuda.set_sync_debug_mode("warn")
-            t0 = time.perf_counter()
-            try:
-                return agg_orig(Uc, pool, F_bank, idx_bank, method, **kw)
-            finally:
-                agg["host_s"] += time.perf_counter() - t0
-                torch.cuda.set_sync_debug_mode(0)
-                agg["calls"] += 1
-                agg["syncs"] += sum("called a synchronizing" in str(w.message)
-                                    for w in caught)
-                if not largest or F_bank.size > largest[0][2].size:
-                    largest[:] = [(Uc, pool, F_bank, idx_bank)]
+        t0 = time.perf_counter()
+        out, syncs = count_syncs(
+            lambda: agg_orig(Uc, pool, F_bank, idx_bank, method, **kw),
+            "hmooc2")
+        agg["host_s"] += time.perf_counter() - t0
+        agg["calls"] += 1
+        agg["syncs"] += syncs
+        if not largest or F_bank.size > largest[0][2].size:
+            largest[:] = [(Uc, pool, F_bank, idx_bank)]
+        return out
 
     def tie_flag(F):
         flag = tie_orig(F)
@@ -2097,8 +2151,10 @@ def serve_lm(device, cfg, path: str, batch: int = LM_BATCH,
         score_trace = device_breakdown(score, top=LM_TOP)
     pos = torch.full((batch, 1), gen_tokens.shape[1] + pre + gen - 1,
                      device=device)
-    step_trace = device_breakdown(lambda: make_serve_fns(model).decode(
-        generated[:, -1:], cache, pos), top=LM_TOP)
+    # The [lm] path's traced decode step also counts its host syncs.
+    step_trace = device_breakdown(lambda: count_syncs(
+        lambda: make_serve_fns(model).decode(generated[:, -1:], cache, pos),
+        "lm" if path == "lm" else None), top=LM_TOP)
     del cache
     require_launches(path, launches)
     prefill_launches = launches["flash_attention"] - scoring_launches
@@ -2968,7 +3024,7 @@ def run_train_path(device) -> dict:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         model, syncs = count_syncs(lambda: train_model(
-            ds, cfg, steps=steps, batch=batch, seed=0, device=device))
+            ds, cfg, steps=steps, batch=batch, seed=0, device=device), "train")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         losses = model.train_losses
@@ -3379,7 +3435,8 @@ def run_serve_path(device, models: dict) -> dict:
     in_round = {"pareto_filter": 0, "ws_reduce": 0}
 
     def weighted_pick(Fs, weights, **kw):
-        out, syncs = count_syncs(lambda: pick_orig(Fs, weights, **kw))
+        out, syncs = count_syncs(lambda: pick_orig(Fs, weights, **kw),
+                                 "serve")
         picks["calls"] += 1
         picks["syncs"] += syncs
         return out
@@ -4146,7 +4203,7 @@ def lm_train_full_width(device) -> dict:
         def one():
             return fns.step(params, state, batches[i])
         if i == LM_TRAIN_WARM - 1:
-            (params, state, m), syncs = count_syncs(one)
+            (params, state, m), syncs = count_syncs(one, "lm_train")
         else:
             params, state, m = one()
         losses.append(m["loss"])
@@ -4524,6 +4581,66 @@ def run_lm_train_path(device) -> dict:
             "full": full, "checkpoint": ckpt}
 
 
+# ---------------------------------------------------------------------------
+# The invariant suite, and the card's host syncs held to it
+# ---------------------------------------------------------------------------
+
+def run_analysis_path() -> dict:
+    """``python -m repro_torch.analysis --strict --json src/repro_torch``
+    on this machine, in a subprocess that must exit 0; then every host
+    sync site that count_syncs recorded on the paths of SYNC_BUDGET must
+    be a TH001/TH002 finding of that run which a ``repro_torch:`` marker
+    suppresses, and each path's syncs a call must stay within its
+    budget.  Returns the per-rule counts and the per-path rows."""
+    t0 = time.perf_counter()
+    root = Path(__file__).resolve().parent
+    cmd = [sys.executable, "-m", "repro_torch.analysis", "--strict",
+           "--json", "src/repro_torch"]
+    out = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
+                         env=dict(os.environ, PYTHONPATH=str(root / "src")),
+                         timeout=ANALYSIS_TIMEOUT_S)
+    if out.returncode != 0:
+        raise AssertionError(f"{' '.join(cmd[1:])} exited {out.returncode}:"
+                             f"\n{out.stdout[-4000:]}\n{out.stderr[-4000:]}")
+    report = json.loads(out.stdout)
+    suite_s = time.perf_counter() - t0
+    counts = {rule: [c["findings"], c["suppressed"]]
+              for rule, c in report["summary"].items()}
+    log(f"[analysis] python -m repro_torch.analysis --strict "
+        f"src/repro_torch: exit 0 in {suite_s:.3f} s; per rule [found, "
+        f"suppressed]: {json.dumps(counts)}")
+    allowed = {(f["path"], f["line"]) for f in report["suppressed"]
+               if f["rule"] in ("TH001", "TH002")}
+    rows, missed, over = {}, set(), []
+    for path, budget in SYNC_BUDGET.items():
+        rec = SYNC_SITES.get(path)
+        if rec is None or not rec["calls"]:
+            raise AssertionError(f"no call of the {path} path ran under "
+                                 "count_syncs")
+        sites = {f"{p}:{ln}": n for (p, ln), n in sorted(rec["sites"].items())}
+        rows[path] = {"calls": rec["calls"], "syncs": rec["syncs"],
+                      "syncs_per_call": rec["syncs"] / rec["calls"],
+                      "max_syncs_in_a_call": rec["max_per_call"],
+                      "budget": budget, "sites": sites}
+        log(f"[analysis] {path}: {rec['calls']} calls, {rec['syncs']} host "
+            f"syncs ({rec['syncs'] / rec['calls']:.4f} a call, at most "
+            f"{rec['max_per_call']} in one; budget {budget}); "
+            f"{len(sites)} distinct sites {json.dumps(sites)}")
+        missed |= {site for site in rec["sites"] if site not in allowed}
+        if rec["max_per_call"] > budget:
+            over.append(f"{path}: {rec['max_per_call']} syncs in one call, "
+                        f"budget {budget}")
+    if missed:
+        raise AssertionError(
+            "host sync sites that are no suppressed TH001/TH002 finding of "
+            "the port's analyzer: " + ", ".join(f"{p}:{ln}"
+                                                 for p, ln in sorted(missed)))
+    if over:
+        raise AssertionError("host syncs over the budget: " + "; ".join(over))
+    log(f"[analysis] phase: {time.perf_counter() - t0:.3f} s")
+    return {"rules": counts, "paths": rows}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4605,6 +4722,7 @@ def main() -> int:
     lm_train_path = run_lm_train_path(device)
     torch.cuda.empty_cache()
     shard_path = run_shard_path(device)
+    run_analysis_path()
     paths = {"compile": compile_path["launches"],
              "runtime": runtime_path["launches"],
              "hmooc2": hmooc2_path["launches"],

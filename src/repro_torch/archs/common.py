@@ -134,9 +134,13 @@ def _rope_freqs(half: int, theta: float, device: torch.device
     """The rotary frequencies, computed in float64 numpy as the reference
     does and kept in float32 on ``device``.  Cached: a copy from pageable
     host memory waits for the card, and a decode step would otherwise
-    make two such copies in every layer.  Callers only read the tensor."""
-    freqs = 1.0 / (theta ** (np.arange(0, half) / half))
-    return torch.from_numpy(freqs).to(device=device, dtype=torch.float32)
+    make two such copies in every layer, and the one copy goes through
+    pinned memory without a wait.  Callers only read the tensor."""
+    freqs = torch.from_numpy(
+        (1.0 / (theta ** (np.arange(0, half) / half))).astype(np.float32))
+    if device.type == "cuda":
+        freqs = freqs.pin_memory()
+    return freqs.to(device, non_blocking=True)
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor,

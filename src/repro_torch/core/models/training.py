@@ -217,10 +217,12 @@ def train_model(ds: RowDataset, cfg: ModelConfig, *, steps: int = 1500,
         opt.step()
         losses[t] = loss.detach()
         if verbose and (t + 1) % 200 == 0:
+            # repro_torch: allow[TH002] verbose=True only: the progress line every 200 steps reads the mean loss; the budgeted call (verbose off) makes no sync in its loop
             recent = losses[max(0, t - 99):t + 1].mean().item()
             print(f"  step {t+1}/{steps} loss {recent:.4f}")
     model = PerfModel(cfg, params=net.state_dict(), target_stats=stats,
                       device=device)
+    # repro_torch: allow[TH002] train_model's one sync a call (PERF.md §3): the per-step losses read back once, after the last step
     model.train_losses = losses.cpu().numpy()
     return model
 

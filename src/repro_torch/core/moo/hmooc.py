@@ -428,9 +428,11 @@ def _ws_pick(Fn: np.ndarray, W: np.ndarray, device: torch.device
     if N * m * B * nw >= _ws_min_scores(device) \
             and not _f32_tie_hazard(Fn.reshape(-1, k)):
         from ...kernels.ws_reduce import ws_reduce  # lazy: kernel layer
+        # repro_torch: allow[TH002] HMOOC2's float64 route (a bank with a float32 tie) on the card: K2's two blocking copies in (PERF.md §3: three syncs a K2 call); the fused route the budget counts makes none here
         _, idx = ws_reduce(torch.from_numpy(
             np.ascontiguousarray(Fn.reshape(N * m, B, k))).to(device),
             torch.from_numpy(np.ascontiguousarray(W)).to(device))
+        # repro_torch: allow[TH002] HMOOC2's float64 route on the card: K2's picks read back, the third of its three syncs a call (PERF.md §3)
         return idx.cpu().numpy().astype(int).reshape(nw, N, m)
     scores = np.einsum("wk,cibk->wcib", W, Fn)           # (nw, N, m, B)
     return np.argmin(scores, axis=-1)
@@ -524,6 +526,7 @@ def _host_arrays(*ts: torch.Tensor) -> List[np.ndarray]:
             for t, a, n in zip(ts, starts, sizes)]
     for o, t in zip(outs, ts):
         o.copy_(t, non_blocking=True)
+    # repro_torch: allow[TH002] the HMOOC2 aggregation's second sync (PERF.md §3: two a K3 call): K3's picks, sums and mask read back together
     torch.cuda.current_stream(ts[0].device).synchronize()
     return [o.numpy() for o in outs]
 
@@ -622,6 +625,7 @@ def dag_aggregate(
             W = _ws_weights(n_ws_weights)
             if device.type == "cuda":
                 Fb, W = _hmooc2_stage(F_bank, W, device)
+                # repro_torch: allow[TH002] the HMOOC2 aggregation's first sync (PERF.md §3: two a K3 call): the staged bank's float32 tie flag, which picks the route
                 hazard = bool(_f32_tie_hazard_tensor(Fb.view(-1, k)))
             else:
                 Fb, hazard = F_bank, _f32_tie_hazard(F_bank.reshape(-1, k))

@@ -309,6 +309,7 @@ def _pareto_masks_kernel(X: np.ndarray, v: np.ndarray, device: torch.device
     buf = buf.to(device, non_blocking=True)
     F32 = buf[:nF].view(torch.float32).view(S, bucket, k)
     valid = buf[nF:].view(torch.bool).view(S, bucket)
+    # repro_torch: allow[TH002] K1's callers' one sync a call (PERF.md §3): the launch's masks read back
     return pareto_filter_segments(F32, valid).cpu().numpy()
 
 

@@ -268,6 +268,7 @@ def _pick_on_card(Fs: List[np.ndarray], w: np.ndarray,
                        max_n=max(f.shape[0] for f in Fs))
     picks = torch.empty(out.shape, dtype=torch.int32, pin_memory=True)
     picks.copy_(out, non_blocking=True)
+    # repro_torch: allow[TH002] a runtime round's one sync (PERF.md §3): the round's picks read back
     torch.cuda.current_stream(device).synchronize()
     j = picks.numpy()[:len(Fs)]
     if (j < 0).any():

@@ -62,6 +62,7 @@ def _as(x, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     ``device``."""
     if not isinstance(x, torch.Tensor):
         x = torch.from_numpy(np.ascontiguousarray(x))
+    # repro_torch: allow[TH002] a blocking copy only for numpy inputs; the HMOOC2 aggregation hands K3 the bank and weights already staged on the card (one pinned copy), so its K3 call copies nothing here
     return x.to(device=device, dtype=dtype).contiguous()
 
 
