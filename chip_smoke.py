@@ -99,10 +99,16 @@ default model and solver widths:
   moments and batches), its losses bit-equal to the same steps without
   a mesh; glm4-9b's bf16 scoring forward (4 x 2048, K4 once a layer on
   each rank's heads) under the mesh, its logits bit-equal to the
-  unsharded ones; and the dry-run's rows for those two cells
+  unsharded ones; a row for each other family (SHARD_FAMILIES: the
+  ``moe``, ``audio``, ``vlm``, ``ssm`` and ``hybrid`` phases' serving
+  traffic, the SSM's prompt cut to 512), one model served through
+  ``make_serve_fns`` without a mesh and then under it: scoring, prefill
+  and decode logits and greedy tokens bit-equal, K4's launches by body,
+  times and peak memory of both; and the dry-run's rows for those cells
   (``launch/dryrun.py`` on a fake one-rank world, before the NCCL world
-  exists): their argument bytes against the bytes the same state holds
-  on the card, their roofline bound against the measured times;
+  exists; a family's decode cell): their argument bytes against the
+  bytes the same state holds on the card, their roofline bound against
+  the measured times;
 * the port's invariant suite (``analysis``):
   ``python -m repro_torch.analysis --strict --json src/repro_torch`` in a
   subprocess on this machine, which must exit 0, and every host
@@ -249,6 +255,7 @@ from repro_torch.serve.cache import query_fingerprint  # noqa: E402
 from repro_torch.serve import service as service_mod  # noqa: E402
 from repro_torch.train.optimizer import OptConfig  # noqa: E402
 from repro_torch.train.serve import make_serve_fns  # noqa: E402
+from repro_torch.train.sharding import tree_map  # noqa: E402
 from repro_torch.train.train_loop import (  # noqa: E402
     make_train_step as make_lm_train_step, train_loop)
 from _runtime_pick_cases import (  # noqa: E402
@@ -604,6 +611,24 @@ SHARD_TRAIN_CELL = ShapeCell("shard_train", "train", LM_TRAIN_SEQ,
                              LM_TRAIN_BATCH)
 SHARD_SCORE_CELL = ShapeCell("shard_score", "score", LM_PROMPT, LM_BATCH)
 CUDA_ALLOC_SLACK = (1 << 20) + 512
+# The [shard] family rows: each family phase's serving traffic through
+# make_serve_fns on one model object, first without a mesh and then under
+# the (1, 1) mesh: (row, architecture, configuration overrides (None: the
+# smoke configuration's, float32 with use_flash), weight seed, input
+# seed, batch, scoring tokens, prefill tokens, cache slots).  The SSM row
+# takes SHARD_SSM_PROMPT tokens, not [ssm]'s 2048: its scan is a Python
+# loop of ops a token, each of which DTensor dispatches under the mesh.
+SHARD_SSM_PROMPT = 512
+SHARD_FAMILIES = (
+    ("moe", MOE_ARCH, {"use_flash": True}, 0, 0, LM_BATCH, LM_PROMPT,
+     LM_PROMPT, LM_CAPACITY),
+    ("audio", AUDIO_ARCH, {"use_flash": True}, 0, 0, AUDIO_BATCH,
+     AUDIO_SCORE, AUDIO_PROMPT, AUDIO_PROMPT + LM_GEN),
+    ("vlm", VLM_ARCH, {"n_layers": VLM_LAYERS, "use_flash": True}, 0, 0,
+     LM_BATCH, LM_PROMPT, LM_PROMPT, VLM_PATCHES + LM_CAPACITY),
+    ("ssm", SSM_ARCH, {}, 0, 0, LM_BATCH, SHARD_SSM_PROMPT, SHARD_SSM_PROMPT,
+     SHARD_SSM_PROMPT + LM_GEN),
+    ("hybrid", HYBRID_ARCH, None, 3, 4, 2, 48, 48, 48 + LM_GEN))
 
 
 def log(msg: str) -> None:
@@ -4321,14 +4346,41 @@ def lm_train_checkpoint(device) -> dict:
             "run_s": run_s}
 
 
+def family_config(arch: str, over):
+    """A [shard] family row's configuration, and the overrides that make it
+    from the full configuration (what ``dryrun_cell`` takes): ``over``
+    itself, or for ``None`` the smoke configuration's fields in float32
+    with use_flash."""
+    if over is not None:
+        return get_config(arch, **over), over
+    cfg = get_smoke_config(arch, dtype="float32", use_flash=True)
+    full = get_config(arch)
+    return cfg, {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)
+                 if getattr(cfg, f.name) != getattr(full, f.name)}
+
+
+def family_decode_cell(name: str, cfg, batch: int, capacity: int
+                       ) -> ShapeCell:
+    """The dry-run's decode cell whose cache is a [shard] family row's
+    (``capacity`` slots; the dry-run adds a VLM's patch slots to the
+    cell's length)."""
+    pre = cfg.n_patches if cfg.family == "vlm" else 0
+    return ShapeCell(f"shard_{name}_decode", "decode", capacity - pre, batch)
+
+
 def shard_dryrun_rows() -> dict:
     """``launch/dryrun.py``'s rows for the [shard] cells on the (1, 1) mesh
     of a fake one-rank world (meta tensors, no card); run before the NCCL
-    world exists, since a process has one default group."""
+    world exists, since a process has one default group.  Besides the
+    train and scoring cells, each family row's decode cell."""
     rows = {}
-    for key, arch, cell, over in (
-            ("train", LM_TRAIN_ARCH, SHARD_TRAIN_CELL, None),
-            ("score", LM_ARCH, SHARD_SCORE_CELL, {"use_flash": True})):
+    cells = [("train", LM_TRAIN_ARCH, SHARD_TRAIN_CELL, None),
+             ("score", LM_ARCH, SHARD_SCORE_CELL, {"use_flash": True})]
+    for name, arch, over, _, _, batch, _, _, capacity in SHARD_FAMILIES:
+        cfg, over = family_config(arch, over)
+        cells.append((name, arch, family_decode_cell(name, cfg, batch,
+                                                     capacity), over))
+    for key, arch, cell, over in cells:
         with fake_world(1):
             row = dryrun_cell(arch, cell.name, cell=cell, overrides=over,
                               verbose=False)
@@ -4481,6 +4533,216 @@ def shard_score(device, mesh, dry: dict) -> dict:
     return out
 
 
+def tensor_leaves(tree) -> list:
+    out = []
+    tree_map(out.append, tree)
+    return out
+
+
+@contextlib.contextmanager
+def count_flash_causal():
+    """K4's calls by ``causal`` while open: ``archs.blocks`` reaches the
+    wrapper through its module global, under a mesh too."""
+    counts = Counter()
+    orig = arch_blocks.flash_attention
+
+    def counted(q, k, v, causal=True):
+        counts["causal" if causal else "non_causal"] += 1
+        return orig(q, k, v, causal=causal)
+    arch_blocks.flash_attention = counted
+    try:
+        yield counts
+    finally:
+        arch_blocks.flash_attention = orig
+
+
+def serve_family(model, fns, tokens, gen_tokens, patches, capacity: int,
+                 steps: int) -> dict:
+    """A [shard] family row's calls through ``fns``, with the launch counts
+    at 0: a scoring forward over ``tokens`` (every position's logits),
+    prefill of ``gen_tokens`` into a fresh cache of ``capacity`` slots
+    (behind the patches, or with the frames) and ``steps`` greedy decode
+    steps; their outputs, wall times and K4 launches."""
+    batch = tokens.shape[0]
+    pre = prefix_slots(model.cfg, patches)
+    torch.cuda.synchronize()
+    reset_launches()
+    with count_flash_causal() as causal:
+        t0 = time.perf_counter()
+        scores = fns.score(tokens, patches)
+        torch.cuda.synchronize()
+        score_s = time.perf_counter() - t0
+    scoring = flash_ops.LAUNCHES
+    bodies = {b: n for b, n in flash_ops.LAUNCHES_BY_BODY.items() if n}
+    cache = model.init_cache(batch, capacity)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = fns.prefill(gen_tokens, cache, patches)
+    nxt = torch.argmax(logits[:, -1], -1)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    prefill = flash_ops.LAUNCHES - scoring
+    out, generated = [logits], [nxt]
+    t0 = time.perf_counter()
+    for t in range(steps):
+        pos = torch.full((batch, 1), gen_tokens.shape[1] + pre + t,
+                         dtype=torch.int64, device=tokens.device)
+        logits, cache = fns.decode(nxt[:, None], cache, pos)
+        nxt = torch.argmax(logits[:, -1], -1)
+        out.append(logits)
+        generated.append(nxt)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    launches = read_launches()
+    return {"scores": scores, "serve_logits": torch.cat(out, 1),
+            "generated": torch.stack(generated, 1), "score_s": score_s,
+            "prefill_s": prefill_s, "decode_step_s": decode_s / steps,
+            "launches": launches, "flash_scoring": scoring,
+            "flash_scoring_by_body": bodies,
+            "flash_scoring_by_causal": dict(causal),
+            "flash_prefill": prefill,
+            "flash_decode": launches["flash_attention"] - scoring - prefill}
+
+
+def shard_family(device, mesh, dry: dict, card: str, name: str, arch: str,
+                 over, seed: int, input_seed: int, batch: int, score: int,
+                 prompt: int, capacity: int) -> dict:
+    """One [shard] family row (SHARD_FAMILIES): the model built once from
+    ``seed``, its parameters, a cache of ``capacity`` slots and the decode
+    inputs measured on the card against the dry-run's decode cell; then
+    the row's calls (``serve_family``: a first call at the row's shapes
+    with 2 decode steps, which fills DTensor's sharding caches under the
+    mesh, and the measured one with LM_GEN - 1) through
+    ``make_serve_fns(model)`` and then ``make_serve_fns(model, mesh=)`` on
+    the same model.  Logits and greedy tokens bit-equal, K4's launches
+    (flash_layers in scoring on the body the dtype and head width call
+    for, an audio model's encoder non-causal; flash_prefill_layers in
+    prefill; none in decode) in both, and the dry-run's bound at most the
+    measured decode step."""
+    t_row = time.perf_counter()
+    cfg, _ = family_config(arch, over)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    set_activation_mesh(None)
+
+    def build():
+        model = build_model(cfg, device,
+                            torch.Generator(device=device).manual_seed(seed))
+        return (model, model.init_cache(batch, capacity),
+                torch.zeros((batch, 1), dtype=torch.int32, device=device),
+                torch.zeros((batch, 1), dtype=torch.int32, device=device))
+    allocated, (model, cache, tok, pos) = state_bytes_on_card(build)
+    held = held_bytes([*model.parameters(), *tensor_leaves(cache), tok, pos])
+    check_state_bytes(f"{name} ({cfg.name}) parameters, cache and decode "
+                      "inputs", allocated, held, dry[name])
+    del cache, tok, pos
+    tokens, patches = lm_inputs(cfg, batch, score, device, seed=input_seed)
+    gen_tokens = tokens[:, :prompt]
+    runs = {}
+    for tag, m in (("plain", None), ("mesh", mesh)):
+        set_activation_mesh(None)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        fns = make_serve_fns(model, mesh=m)
+        first = serve_family(model, fns, tokens, gen_tokens, patches,
+                             capacity, 2)
+        first = {k: first[k] for k in ("score_s", "prefill_s",
+                                       "decode_step_s")}
+        run = serve_family(model, fns, tokens, gen_tokens, patches,
+                           capacity, LM_GEN - 1)
+        run["scores"] = run["scores"].cpu()
+        run.update(first_call=first,
+                   max_memory_bytes=torch.cuda.max_memory_allocated())
+        runs[tag] = run
+    set_activation_mesh(None)
+    plain, sharded = runs["plain"], runs["mesh"]
+    vocab = cfg.vocab
+    if plain["scores"].shape != (batch, score, vocab) or \
+            not torch.isfinite(plain["scores"]).all() or \
+            not torch.isfinite(plain["serve_logits"]).all():
+        raise AssertionError(f"[shard] {name}: bad logits "
+                             f"{tuple(plain['scores'].shape)}")
+    gen = plain["generated"]
+    if gen.shape != (batch, LM_GEN) or not ((gen >= 0) & (gen < vocab)).all():
+        raise AssertionError(f"[shard] {name}: generated tokens out of range")
+    for what in ("scores", "serve_logits", "generated"):
+        a, b = plain[what], sharded[what]
+        if isinstance(b, DTensor) or not torch.equal(bits(a), bits(b)):
+            raise AssertionError(
+                f"[shard] {name} ({cfg.name}): {what} under the (1, 1) mesh "
+                f"differ from those without; max |d| "
+                f"{float((a.float() - b.float()).abs().max())}")
+    want = flash_layers(cfg)
+    body = flash_ops._body(DTYPES[cfg.dtype], cfg.head_dim)
+    enc = cfg.enc_layers if cfg.family == "audio" and want else 0
+    want_causal = {k: n for k, n in (("causal", want - enc),
+                                     ("non_causal", enc)) if n}
+    for tag, r in runs.items():
+        if r["flash_scoring"] != want or \
+                r["flash_scoring_by_body"] != ({body: want} if want else {}) \
+                or r["flash_scoring_by_causal"] != want_causal \
+                or r["flash_prefill"] != flash_prefill_layers(cfg) \
+                or r["flash_decode"] != 0:
+            raise AssertionError(
+                f"[shard] {name} {tag}: K4 launched {r['flash_scoring']} "
+                f"times in scoring ({r['flash_scoring_by_body']}, "
+                f"{r['flash_scoring_by_causal']}), {r['flash_prefill']} in "
+                f"prefill, {r['flash_decode']} in decode; {want} on the "
+                f"{body} body ({want_causal}), "
+                f"{flash_prefill_layers(cfg)} and 0 expected")
+    row_dry = dry[name]
+    bound = row_dry["roofline"]["bound_s"]
+    if not 0 < bound <= sharded["decode_step_s"]:
+        raise AssertionError(f"[shard] {name}: the dry-run's bound {bound} s "
+                             f"a decode step against "
+                             f"{sharded['decode_step_s']} s measured")
+    keep = ("score_s", "prefill_s", "decode_step_s", "first_call",
+            "max_memory_bytes", "launches", "flash_scoring",
+            "flash_scoring_by_body", "flash_scoring_by_causal",
+            "flash_prefill", "flash_decode")
+    row = {"arch": cfg.name, "dtype": cfg.dtype, "n_layers": cfg.n_layers,
+           "batch": batch, "scoring_tokens": score, "prefill_tokens": prompt,
+           "decode_steps": LM_GEN - 1, "cache_slots": capacity,
+           "card": card, "bit_equal": True,
+           "state_bytes_on_card": allocated,
+           "dryrun_argument_bytes": row_dry["memory"]["argument_bytes"],
+           "dryrun_decode_bound_s": bound,
+           "dryrun_peak_per_device_gb":
+               row_dry["memory"]["peak_per_device_gb"],
+           **{tag: {k: r[k] for k in keep} for tag, r in runs.items()}}
+    if cfg.family == "moe":
+        row["moe_capacity"] = {"scoring": arch_blocks.moe_capacity(cfg, score),
+                               "prefill": arch_blocks.moe_capacity(cfg,
+                                                                   prompt),
+                               "decode": arch_blocks.moe_capacity(cfg, 1)}
+    row["row_s"] = time.perf_counter() - t_row
+    log(f"[shard] {name}: {json.dumps(row)}")
+    log(f"[shard] {name} ({cfg.name}, {cfg.n_layers} layers, {cfg.dtype}) on "
+        f"{card}: scoring {batch} x {score} {plain['score_s']:.4f} s without "
+        f"a mesh, {sharded['score_s']:.4f} s under the (1, 1) mesh; prefill "
+        f"{batch} x {prompt} {plain['prefill_s']:.4f} s, "
+        f"{sharded['prefill_s']:.4f} s; a decode step "
+        f"{plain['decode_step_s'] * 1e3:.3f} ms, "
+        f"{sharded['decode_step_s'] * 1e3:.3f} ms ({LM_GEN - 1} steps); "
+        f"first calls under the mesh: scoring "
+        f"{sharded['first_call']['score_s']:.4f} s, prefill "
+        f"{sharded['first_call']['prefill_s']:.4f} s; logits and greedy "
+        f"tokens bit-equal; K4 {sharded['flash_scoring']} in scoring "
+        f"{sharded['flash_scoring_by_body']} "
+        f"{sharded['flash_scoring_by_causal']}, {sharded['flash_prefill']} "
+        f"in prefill, 0 in decode; peak memory "
+        f"{plain['max_memory_bytes']} bytes without, "
+        f"{sharded['max_memory_bytes']} under the mesh; state "
+        f"{allocated} bytes on the card, dry-run argument bytes "
+        f"{row_dry['memory']['argument_bytes']}, bound "
+        f"{bound * 1e3:.4f} ms a decode step; row {row['row_s']:.3f} s")
+    launches = sharded["launches"]
+    del model, runs, plain, sharded, tokens, patches, gen_tokens
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "row": row}
+
+
 def run_shard_path(device) -> dict:
     """Sharding on one card: the dry-run's rows first, then a one-rank NCCL
     world and its (1, 1) mesh, the train and scoring comparisons, each
@@ -4498,10 +4760,15 @@ def run_shard_path(device) -> dict:
             raise AssertionError(f"[shard] host mesh {mesh}")
         train = shard_train(device, mesh, dry)
         score = shard_score(device, mesh, dry)
+        card = card_line()
+        families = {fam[0]: shard_family(device, mesh, dry, card, *fam)
+                    for fam in SHARD_FAMILIES}
     finally:
         set_activation_mesh(None)
         dist.destroy_process_group()
-    launches = score["mesh"]["launches"]
+    launches = dict(Counter(score["mesh"]["launches"]) + sum(
+        (Counter(f["launches"]) for f in families.values()), Counter()))
+    launches = {k["name"]: launches.get(k["name"], 0) for k in KERNELS}
     require_launches("shard", launches)
     bounds = {"train": (dry["train"]["roofline"]["bound_s"],
                         train["mesh"]["step_s"]),
@@ -4525,7 +4792,7 @@ def run_shard_path(device) -> dict:
                           "bytes_per_device": r["bytes_per_device"],
                           "collective_by_type": r["collective_by_type"],
                           "t_run_s": r["t_run_s"]}
-                      for k, r in dry.items()},
+                      for k, r in dry.items() if k in ("train", "score")},
            "dryrun_s": t_dry}
     log(f"[shard] {json.dumps(row)}")
     log(f"[shard] minicpm-2b full width, 8 x 512 tokens, accum 4: "
@@ -4542,11 +4809,13 @@ def run_shard_path(device) -> dict:
         f"{score['plain']['score_s']:.4f} s without a mesh, "
         f"{score['mesh']['score_s']:.4f} s under the mesh (bound "
         f"{bounds['score'][0]:.4f} s); logits bit-equal; K4 launches "
-        f"{launches['flash_attention']}; parameters and tokens "
+        f"{score['mesh']['launches']['flash_attention']}; parameters and "
+        f"tokens "
         f"{score['state_bytes_on_card']} bytes on the card, dry-run "
         f"argument bytes {dry['score']['memory']['argument_bytes']}")
     log(f"[shard] phase: {time.perf_counter() - t_phase:.3f} s (dry-run "
         f"rows {t_dry:.3f} s); launches {launches}")
+    row["families"] = {k: f["row"] for k, f in families.items()}
     return {"launches": launches, "row": row}
 
 
@@ -4753,6 +5022,12 @@ def main() -> int:
         entries["flash_attention"][f"{name}_launches_by_body"] = {
             "scoring": row["flash_launches_scoring_by_body"],
             "generation": row["flash_launches_generation"]}
+    entries["flash_attention"]["shard_launches_by_body"] = {
+        "glm4-9b": shard_path["row"]["score"]["mesh"]["bodies"],
+        **{name: {"scoring": f["mesh"]["flash_scoring_by_body"],
+                  "prefill": f["mesh"]["flash_prefill"],
+                  "decode": f["mesh"]["flash_decode"]}
+           for name, f in shard_path["row"]["families"].items()}}
     for k in KERNELS:
         e = dict(entries[k["name"]])
         by_path = {p: paths[p][k["name"]] for p in paths}

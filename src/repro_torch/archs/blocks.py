@@ -19,8 +19,9 @@ The counterpart of the reference's ``archs/blocks.py``.  Conventions:
 Under a registered mesh (``archs/act_sharding``) each layer takes its
 weights gathered along the batch axes (``gather_weights``), attention
 shards its DTensor queries as the reference's ``_shard_attn_acts`` does,
-and the flash kernel runs on each rank's own heads; without one, or on
-plain tensors, none of this changes anything.
+the flash kernel runs on each rank's own heads and the chunked route's
+loop on each rank's own rows; without one, or on plain tensors, none of
+this changes anything.
 ``apply_attention(xattn_kv=...)`` attends precomputed K/V non-causally,
 as the reference's does; the encoder–decoder's own cross-attention
 (``archs/encdec.py``) is the reference's float32 einsum and does not
@@ -141,8 +142,10 @@ def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return flash_attention(q, k, v, causal=causal)
     q = _shard_attn_acts(q)
     if Sq * Skv > _CHUNK_THRESHOLD and Sq > 1:
-        return _attend_chunked(q, k, v, causal=causal, window=window,
-                               kv_len=kv_len, q_start=q_start)
+        chunked = _chunked_local if isinstance(q, DTensor) \
+            else _attend_chunked
+        return chunked(q, k, v, causal=causal, window=window,
+                       kv_len=kv_len, q_start=q_start)
     group = Hq // Hkv
     kr = torch.repeat_interleave(k, group, dim=1)
     vr = torch.repeat_interleave(v, group, dim=1)
@@ -179,8 +182,8 @@ def _attend_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     B, Hq, Sq, Dh = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
     group = Hq // Hkv
-    kr = torch.repeat_interleave(k, group, dim=1)
-    vr = torch.repeat_interleave(v, group, dim=1)
+    kr = torch.repeat_interleave(k, group, dim=1) if group > 1 else k
+    vr = torch.repeat_interleave(v, group, dim=1) if group > 1 else v
     if q_start is None:
         q_start = Skv - Sq
     kp = F.pad(kr, (0, 0, 0, (-Skv) % bk))
@@ -215,6 +218,40 @@ def _attend_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             m = m_cur
         outs.append((acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype))
     return torch.cat(outs, dim=2)[:, :, :Sq]
+
+
+def _chunked_local(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                   causal: bool, window: int, kv_len: Optional[int],
+                   q_start: Optional[int]) -> torch.Tensor:
+    """:func:`_attend_chunked` on DTensor q, k, v: each rank runs the chunk
+    loop on plain tensors, its own rows of q as ``_shard_attn_acts`` split
+    them (batch, heads or sequence) against K/V repeated to the query
+    heads and split as q is but whole along the sequence.  On DTensors the
+    loop's dozens of ops a chunk would each go through DTensor's dispatch
+    (a 32k-token prefill makes some 300 chunks a layer).  A rank whose q
+    rows are a slice of the sequence starts its causal mask at that
+    slice's offset."""
+    mesh = q.device_mesh
+    Sq, Skv = q.shape[2], k.shape[2]
+    if q_start is None:
+        q_start = Skv - Sq
+    group = q.shape[1] // k.shape[1]
+    q_pl = list(q.placements)
+    kv_pl = [Replicate() if isinstance(pl, Shard) and pl.dim == 2 else pl
+             for pl in q_pl]
+    k, v = ((torch.repeat_interleave(t, group, dim=1) if group > 1 else t)
+            .redistribute(mesh, kv_pl) for t in (k, v))
+    seq = [i for i, pl in enumerate(q_pl)
+           if isinstance(pl, Shard) and pl.dim == 2]     # 'model' alone
+
+    def attend(ql, kl, vl):
+        off = mesh.get_coordinate()[seq[0]] * ql.shape[2] if seq else 0
+        return _attend_chunked(ql, kl, vl, causal=causal, window=window,
+                               kv_len=kv_len, q_start=q_start + off)
+
+    return local_map(attend, out_placements=q_pl,
+                     in_placements=(q_pl, kv_pl, kv_pl),
+                     device_mesh=mesh)(q, k, v)
 
 
 def _cache_write(buf: torch.Tensor, new: torch.Tensor, idx: int

@@ -189,13 +189,36 @@ class _GradPlacedAsOutput(torch.autograd.Function):
         return grad.redistribute(grad.device_mesh, ctx.placements)
 
 
+def _contiguous_strides(shape) -> Tuple[int, ...]:
+    out, step = [], 1
+    for n in reversed(shape):
+        out.append(step)
+        step *= max(n, 1)
+    return tuple(reversed(out))
+
+
 def merge_heads(t: torch.Tensor) -> torch.Tensor:
     """(..., h, dh) → (..., h·dh).  For a DTensor the gradient flowing back
     is placed as the merged output is, so the backward's split into heads
     meets a dimension DTensor's view rule can split (the product after
-    it may hand back a gradient split over more ranks than h)."""
+    it may hand back a gradient split over more ranks than h).
+
+    DTensor's view rule keeps a size-1 dimension's stride from its input:
+    a decode step's (B, 1, h, dh) merges to strides (h·dh, dh, 1) where
+    the local tensor has (h·dh, h·dh, 1).  ``x @ W`` reads the former and
+    takes a batched product over an expanded W, where the same values
+    unsharded fold into one ``mm``: another kernel, other roundings.  So
+    a contiguous merged DTensor gets the contiguous strides of its
+    shape."""
     out = t.reshape(tuple(t.shape[:-2]) + (t.shape[-2] * t.shape[-1],))
-    if isinstance(out, DTensor) and out.requires_grad:
+    if not isinstance(out, DTensor):
+        return out
+    want = _contiguous_strides(out.shape)
+    if out.is_contiguous() and out.stride() != want:
+        out = DTensor.from_local(out.to_local(), out.device_mesh,
+                                 out.placements, run_check=False,
+                                 shape=out.shape, stride=want)
+    if out.requires_grad:
         out = _GradPlacedAsOutput.apply(out)
     return out
 

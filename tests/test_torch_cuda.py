@@ -1381,3 +1381,60 @@ def test_lm_score_under_host_mesh_on_card(cuda_device, host_mesh):
     assert flash_ops.LAUNCHES - before == cfg.n_layers
     assert not isinstance(got, DTensor)
     assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
+# (architecture, K4 launches of a scoring forward, of a prefill): one a
+# windowless attention layer (a jamba group has one; RWKV none); an audio
+# model's prefill encodes the frames, one launch an encoder layer.
+HOST_MESH_FAMILIES = [("moonshot-v1-16b-a3b", 2, 0), ("rwkv6-1.6b", 0, 0),
+                      ("jamba-1.5-large-398b", 2, 0), ("whisper-base", 4, 2),
+                      ("internvl2-76b", 2, 0), ("glm4-9b", 2, 0)]
+
+
+@pytest.mark.parametrize("arch,k4_score,k4_prefill", HOST_MESH_FAMILIES)
+def test_family_serving_under_host_mesh_on_card(cuda_device, host_mesh, arch,
+                                                k4_score, k4_prefill):
+    """Each family's bf16 smoke model with ``use_flash`` served through
+    ``make_serve_fns`` without a mesh and then under the (1, 1) NCCL mesh,
+    on one model object: the scoring forward (K4 on each rank's heads,
+    the counted launches), prefill with the patches or frames and 4
+    greedy decode steps (no K4 launch but an audio model's encoder's):
+    logits and tokens bit-equal."""
+    cfg = get_smoke_config(arch, use_flash=True)
+    model = build_model(cfg, cuda_device)
+    rng = np.random.default_rng(4)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 40))).to(
+        cuda_device)
+    rows = {"vlm": cfg.n_patches, "audio": cfg.enc_seq}.get(cfg.family)
+    patches = None if rows is None else torch.from_numpy(rng.normal(
+        size=(2, rows, cfg.d_model)).astype(np.float32)).to(cuda_device)
+    pre = cfg.n_patches if cfg.family == "vlm" else 0
+    sides = {}
+    for tag, mesh in (("plain", None), ("mesh", host_mesh)):
+        set_activation_mesh(None)
+        sf = make_lm_serve_fns(model, mesh=mesh)
+        before = flash_ops.LAUNCHES
+        score = sf.score(tokens, patches)
+        torch.cuda.synchronize()
+        assert flash_ops.LAUNCHES - before == k4_score
+        before = flash_ops.LAUNCHES
+        logits, cache = sf.prefill(tokens, model.init_cache(2, pre + 44),
+                                   patches)
+        out, nxt = [logits], logits[:, -1].argmax(-1)
+        generated = [nxt]
+        for t in range(4):
+            logits, cache = sf.decode(nxt[:, None], cache, torch.full(
+                (2, 1), pre + 40 + t, device=cuda_device))
+            nxt = logits[:, -1].argmax(-1)
+            out.append(logits)
+            generated.append(nxt)
+        torch.cuda.synchronize()
+        assert flash_ops.LAUNCHES - before == k4_prefill
+        sides[tag] = [score, torch.cat(out, 1), torch.stack(generated, 1)]
+    set_activation_mesh(None)
+    assert cfg.dtype == "bfloat16"
+    for a, b in zip(sides["plain"], sides["mesh"]):
+        assert not isinstance(b, DTensor)
+        if a.dtype == torch.bfloat16:
+            a, b = a.view(torch.int16), b.view(torch.int16)
+        assert torch.equal(a, b)
