@@ -191,6 +191,7 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT / "tests"))     # the runtime pick's test cases
 
+from repro_torch import tracing  # noqa: E402
 from repro_torch.archs import blocks as arch_blocks  # noqa: E402
 from repro_torch.archs.common import DTYPES, rmsnorm  # noqa: E402
 from repro_torch.archs.registry import (  # noqa: E402
@@ -252,7 +253,6 @@ from repro_torch.serve import (  # noqa: E402
     ServiceTimeModel, TuningService)
 from repro_torch.serve import runtime as runtime_mod  # noqa: E402
 from repro_torch.serve.cache import query_fingerprint  # noqa: E402
-from repro_torch.serve import service as service_mod  # noqa: E402
 from repro_torch.train.optimizer import OptConfig  # noqa: E402
 from repro_torch.train.serve import make_serve_fns  # noqa: E402
 from repro_torch.train.sharding import tree_map  # noqa: E402
@@ -1566,21 +1566,12 @@ def check_flash_attention(device) -> dict:
 # Phase 3: the port's paths
 # ---------------------------------------------------------------------------
 
-class Timers:
-    """Host wall time spent inside wrapped functions during one batch."""
-
-    def __init__(self):
-        self.t = {}
-
-    def wrap(self, name, fn):
-        def timed(*a, **kw):
-            t0 = time.perf_counter()
-            try:
-                return fn(*a, **kw)
-            finally:
-                self.t[name] = self.t.get(name, 0.0) \
-                    + time.perf_counter() - t0
-        return timed
+def span_seconds(trace, keys: dict) -> dict:
+    """Host seconds inside the program's spans (``repro_torch.tracing``),
+    summed by span name, under a row's keys (``{key: span name}``)."""
+    by_name = tracing.seconds_by_name(trace)
+    return {key: round(by_name.get(name, 0.0), 6)
+            for key, name in keys.items()}
 
 
 def check_results(queries, results) -> None:
@@ -1649,7 +1640,6 @@ def run_main_path(device, n_queries: int = 32,
     batches = [("tpch", serving_stream("tpch", n_queries, seed=0)),
                ("tpch warm", serving_stream("tpch", n_queries, seed=0)),
                ("tpcds", serving_stream("tpcds", n_queries, seed=0))]
-    timers = Timers()
     largest = []
 
     def synced(fn):
@@ -1662,29 +1652,29 @@ def run_main_path(device, n_queries: int = 32,
             largest[:] = [(F.clone(), valid.clone())]
         return seg_orig(F, valid)
 
-    orig = (service_mod.fused_stage_eval, hmooc.pareto_mask_fast,
-            hmooc.pareto_masks_fast, pareto_pkg.pareto_filter_segments,
-            model.predict_rows, model.embed_many)
-    seg_orig = orig[3]
-    service_mod.fused_stage_eval = timers.wrap("stage_eval", orig[0])
-    hmooc.pareto_mask_fast = timers.wrap("pareto_masks", synced(orig[1]))
-    hmooc.pareto_masks_fast = timers.wrap("pareto_masks", synced(orig[2]))
+    orig = (hmooc.pareto_mask_fast, hmooc.pareto_masks_fast,
+            pareto_pkg.pareto_filter_segments)
+    seg_orig = orig[2]
+    hmooc.pareto_mask_fast = synced(orig[0])
+    hmooc.pareto_masks_fast = synced(orig[1])
     pareto_pkg.pareto_filter_segments = segments_seen
-    model.predict_rows = timers.wrap("predict_rows", orig[4])
-    model.embed_many = timers.wrap("embed_many", orig[5])
     reset_launches()
     per_batch, outputs = [], {}
     try:
         for name, queries in batches:
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
-            timers.t.clear()
             rows0 = model.rows_predicted
             l0 = pareto_ops.LAUNCHES
             t0 = time.perf_counter()
-            results = svc.tune_batch(queries, WEIGHTS)
+            with tracing.recording() as trace:
+                results = svc.tune_batch(queries, WEIGHTS)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
+            host_s = span_seconds(trace, {
+                "stage_eval": "stage_eval", "pareto_masks": "pareto_masks",
+                "predict_rows": "model.predict_rows",
+                "embed_many": "tune.embed"})
             check_results(queries, results)
             check_theta_bounds(queries, results)
             outputs[name] = (queries, results)
@@ -1698,24 +1688,22 @@ def run_main_path(device, n_queries: int = 32,
                    "pareto_launches_per_solved_query": (
                        k1 / s.n_solved if s.n_solved else None),
                    "max_memory_bytes": torch.cuda.max_memory_allocated(),
-                   "host_s": {k: round(v, 6) for k, v in timers.t.items()},
+                   "host_s": host_s,
                    "mean_solve_s": float(np.mean([r.solve_time
                                                   for r in results]))}
             per_batch.append(row)
             log(f"[slice] {json.dumps(row)}")
             log(f"[slice] {name}: {k1} K1 launches for {s.n_solved} solved "
                 f"queries; masks' host time "
-                f"{timers.t.get('pareto_masks', 0.0):.6f} s of "
+                f"{host_s['pareto_masks']:.6f} s of "
                 f"{wall:.6f} s")
             if k1 > 2 * s.n_solved:
                 raise AssertionError(f"{name}: {k1} K1 launches for "
                                      f"{s.n_solved} solved queries; at most "
                                      "2 a query (banks phase, DAG filter)")
     finally:
-        (service_mod.fused_stage_eval, hmooc.pareto_mask_fast,
-         hmooc.pareto_masks_fast, pareto_pkg.pareto_filter_segments) = \
-            orig[:4]
-        del model.predict_rows, model.embed_many
+        (hmooc.pareto_mask_fast, hmooc.pareto_masks_fast,
+         pareto_pkg.pareto_filter_segments) = orig
     launches = read_launches()
     require_launches("compile", launches)
     log(f"[slice] cache {svc.cache.stats()}; launches {launches}")
@@ -1763,7 +1751,6 @@ def run_runtime_path(device, model_subq, compiled: dict) -> dict:
     model_qs = PerfModel(ModelConfig("qs", 10), seed=1, device=device)
     sess = RuntimeSession(model_subq=model_subq, model_qs=model_qs,
                           weights=WEIGHTS, device=device)
-    timers = Timers()
     shapes, largest = [], []
     picks = {"calls": 0, "syncs": 0}
 
@@ -1774,22 +1761,16 @@ def run_runtime_path(device, model_subq, compiled: dict) -> dict:
     def weighted_pick(Fs, weights, **kw):
         if not largest or sum(map(len, Fs)) > sum(map(len, largest[0][0])):
             largest[:] = [(list(Fs), np.array(weights))]
-        out, syncs = count_syncs(lambda: timed_pick(Fs, weights, **kw),
+        out, syncs = count_syncs(lambda: orig[0](Fs, weights, **kw),
                                  "runtime")
         picks["calls"] += 1
         picks["syncs"] += syncs
         return out
 
-    orig = (runtime_mod.score_requests, runtime_mod.weighted_pick_batch,
-            ws_pkg.runtime_pick)
-    pick_orig = orig[2]
-    timed_pick = timers.wrap("weighted_pick_batch", orig[1])
-    runtime_mod.score_requests = timers.wrap("score_requests", orig[0])
+    orig = (runtime_mod.weighted_pick_batch, ws_pkg.runtime_pick)
+    pick_orig = orig[1]
     runtime_mod.weighted_pick_batch = weighted_pick
     ws_pkg.runtime_pick = pick_seen
-    for m in (model_subq, model_qs):      # inside score_requests
-        m.embed = timers.wrap("embed", m.embed)
-        m.predict = timers.wrap("predict", m.predict)
     reset_launches()
     per_batch = []
     try:
@@ -1797,19 +1778,23 @@ def run_runtime_path(device, model_subq, compiled: dict) -> dict:
             queries, cts = compiled[name]
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
-            timers.t.clear()
             shapes.clear()
             picks.update(calls=0, syncs=0)
             l0 = read_launches()
             t0 = time.perf_counter()
-            results = sess.run_batch(queries, cts)
+            with tracing.recording() as trace:
+                results = sess.run_batch(queries, cts)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
+            host_s = span_seconds(trace, {
+                "weighted_pick_batch": "round.pick",
+                "score_requests": "round.score", "embed": "model.embed",
+                "predict": "model.predict"})
             check_runtime_results(queries, cts, results)
             s = sess.last_batch
             l1 = read_launches()
             n = {k: l1[k] - l0[k] for k in l1}
-            pick_s = timers.t.get("weighted_pick_batch", 0.0)
+            pick_s = host_s["weighted_pick_batch"]
             row = {"batch": name, "queries": len(queries), "wall_s": wall,
                    "requests_sent": s.requests_sent,
                    "requests_total": s.requests_total,
@@ -1827,7 +1812,7 @@ def run_runtime_path(device, model_subq, compiled: dict) -> dict:
                                                np.max(shapes, axis=0)]
                                               if shapes else None),
                    "max_memory_bytes": torch.cuda.max_memory_allocated(),
-                   "host_s": {k: round(v, 6) for k, v in timers.t.items()},
+                   "host_s": host_s,
                    "mean_actual_latency_s": float(np.mean(
                        [r.sim.actual_latency[0] for r in results]))}
             per_batch.append(row)
@@ -1846,10 +1831,7 @@ def run_runtime_path(device, model_subq, compiled: dict) -> dict:
                 raise AssertionError(f"{name}: the runtime path launched "
                                      f"pareto_filter or ws_reduce ({n})")
     finally:
-        (runtime_mod.score_requests, runtime_mod.weighted_pick_batch,
-         ws_pkg.runtime_pick) = orig
-        for m in (model_subq, model_qs):
-            del m.embed, m.predict
+        (runtime_mod.weighted_pick_batch, ws_pkg.runtime_pick) = orig
     launches = read_launches()
     require_launches("runtime", launches)
     log(f"[runtime] pools {sess.pool_cache.stats()}; launches {launches}")
@@ -3475,23 +3457,13 @@ def run_serve_path(device, models: dict) -> dict:
             for k in in_round:
                 in_round[k] += l1[k] - l0[k]
 
-    timers = Timers()
-    orig = (runtime_mod.weighted_pick_batch, service_mod.fused_stage_eval,
-            hmooc.pareto_mask_fast, hmooc.pareto_masks_fast,
-            runtime_mod.score_requests)
-    pick_orig = orig[0]
+    pick_orig = runtime_mod.weighted_pick_batch
     step_orig = srv.session.step_round
-    runtime_mod.weighted_pick_batch = timers.wrap("weighted_pick_batch",
-                                                  weighted_pick)
-    service_mod.fused_stage_eval = timers.wrap("stage_eval", orig[1])
-    hmooc.pareto_mask_fast = timers.wrap("pareto_masks", orig[2])
-    hmooc.pareto_masks_fast = timers.wrap("pareto_masks", orig[3])
-    runtime_mod.score_requests = timers.wrap("score_requests", orig[4])
-    srv.session.step_round = timers.wrap("step_round", step_round)
-    srv.session.realize = timers.wrap("realize", srv.session.realize)
-    srv.tuning.tune_batch = timers.wrap("tune_batch", srv.tuning.tune_batch)
+    runtime_mod.weighted_pick_batch = weighted_pick
+    srv.session.step_round = step_round
     solved0 = srv.tuning.totals.n_solved
     reset_launches()
+    tracing.enable()
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -3499,12 +3471,17 @@ def run_serve_path(device, models: dict) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     finally:
-        (runtime_mod.weighted_pick_batch, service_mod.fused_stage_eval,
-         hmooc.pareto_mask_fast, hmooc.pareto_masks_fast,
-         runtime_mod.score_requests) = orig
-        del srv.session.step_round, srv.session.realize
-        del srv.tuning.tune_batch
+        tracing.disable()
+        runtime_mod.weighted_pick_batch = pick_orig
+        del srv.session.step_round
     launches = read_launches()
+    host_s = span_seconds(srv.last_run.trace, {
+        "weighted_pick_batch": "round.pick", "stage_eval": "stage_eval",
+        "pareto_masks": "pareto_masks", "score_requests": "round.score",
+        "step_round": "round", "realize": "round.retire",
+        "tune_batch": "tune"})
+    # A round is step_round, then retire_ready and realize.
+    host_s["step_round"] = round(host_s["step_round"] - host_s["realize"], 6)
     # The card's busy time in the same serve (a fresh server and freshly
     # built queries, so every solve and embedding runs again), traced; set
     # against the untraced wall above it gives the card's idle share.
@@ -3545,7 +3522,7 @@ def run_serve_path(device, models: dict) -> dict:
            "k1_ws_launches_inside_rounds": in_round,
            "flush_window_s_sum": sum(w for w, _ in st.flush_windows),
            "tune_window_s_sum": sum(w for w, _ in st.tune_windows),
-           "host_s": {k: round(v, 6) for k, v in timers.t.items()},
+           "host_s": host_s,
            "card_busy_ms": busy_ms,
            "card_idle_share": 1.0 - busy_ms / (wall * 1e3),
            "bit_identical_to_offline": identical}

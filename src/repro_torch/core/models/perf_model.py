@@ -31,6 +31,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ... import tracing
 from ...device import resolve_device
 from ...queryengine.plan import Query
 from .features import batch_graphs, featurize_plan, featurize_subq
@@ -189,6 +190,10 @@ class PerfModel:
         self.head_buckets: set = set()
         self.embed_buckets: set = set()
         self.rows_predicted = 0
+        # Embedding-memo misses of embed and embed_many (each a GTN pass),
+        # and the arrays _to_dev sent to the device.
+        self.emb_misses = 0
+        self.h2d_copies = 0
         # Per-step training losses, when ``training.train_model`` built it.
         self.train_losses: Optional[np.ndarray] = None
 
@@ -227,6 +232,7 @@ class PerfModel:
         return featurize_plan(query, use_est=True, n_pad=self.cfg.pad)
 
     def _to_dev(self, a: np.ndarray) -> torch.Tensor:
+        self.h2d_copies += 1
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
     @torch.inference_mode()
@@ -240,9 +246,16 @@ class PerfModel:
         """Cached GTN embedding for a subQ group or whole plan."""
         # repro: allow[RP004] id(query) only scopes the process-local embedding memo to one live Query object (qid alone can recur with different stats); the memo is never snapshotted and embeddings do not depend on the id value
         key = (id(query), query.qid, sq_id, self.cfg.kind)
-        if key not in self._emb_cache:
-            self._emb_cache[key] = self._embed_batch(
-                [self._graph(query, sq_id)])[0]
+        if key in self._emb_cache:
+            return self._emb_cache[key]
+        self.emb_misses += 1
+        tr = tracing.TRACE
+        if tr is not None:
+            sp = tr.open("model.embed")
+        self._emb_cache[key] = self._embed_batch(
+            [self._graph(query, sq_id)])[0]
+        if tr is not None:
+            tr.close(sp)
         return self._emb_cache[key]
 
     def embed_many(self, pairs: Sequence[Tuple[Query, Optional[int]]]) -> None:
@@ -260,6 +273,7 @@ class PerfModel:
             key = (id(query), query.qid, sq_id, self.cfg.kind)
             if key in self._emb_cache or key in seen:
                 continue
+            self.emb_misses += 1
             seen.add(key)
             todo.append((key, self._graph(query, sq_id)))
         if not todo:
@@ -308,6 +322,9 @@ class PerfModel:
         ``emb`` is one cached embedding (d,) broadcast over the rows, or a
         per-row (n, d) stack.
         """
+        tr = tracing.TRACE
+        if tr is not None:
+            sp = tr.open("model.predict")
         theta = np.asarray(theta, np.float32)
         n = theta.shape[0]
         if nond.ndim == 1:
@@ -316,7 +333,10 @@ class PerfModel:
         embb = emb if emb.ndim == 2 \
             else np.broadcast_to(emb, (n, emb.shape[0]))
         z = self._head_z(embb, theta, np.asarray(nond, np.float32))
-        return self.from_z(z)
+        out = self.from_z(z)
+        if tr is not None:
+            tr.close(sp, rows=n)
+        return out
 
     def predict_rows(self, emb: np.ndarray, theta: np.ndarray,
                      nond: np.ndarray) -> np.ndarray:
@@ -327,6 +347,9 @@ class PerfModel:
         are zero-padded to a power-of-two bucket, in chunks of at most
         ``REPRO_HEAD_MAX_BUCKET`` rows.
         """
+        tr = tracing.TRACE
+        if tr is not None:
+            sp = tr.open("model.predict_rows")
         emb = np.ascontiguousarray(emb, np.float32)
         theta = np.ascontiguousarray(theta, np.float32)
         nond = np.ascontiguousarray(nond, np.float32)
@@ -352,8 +375,11 @@ class PerfModel:
                 e, t, d = ep, tp, dp
             self.head_buckets.add((b, theta.shape[1]))
             outs.append(self._head_z(e, t, d)[:c])
-        return self.from_z(outs[0] if len(outs) == 1
-                           else np.concatenate(outs, 0))
+        out = self.from_z(outs[0] if len(outs) == 1
+                          else np.concatenate(outs, 0))
+        if tr is not None:
+            tr.close(sp, rows=n)
+        return out
 
     def compile_stats(self) -> dict:
         """Shape accounting, in the reference's keys.

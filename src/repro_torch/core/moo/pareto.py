@@ -26,6 +26,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ... import tracing
 from ...device import resolve_device
 
 __all__ = [
@@ -207,6 +208,9 @@ def pareto_masks_fast(Fs: Sequence[np.ndarray],
     per-bank host work (validity, padding, tie check) runs over the stack.
     Every bank holds (n_b, k) objectives with one k.
     """
+    tr = tracing.TRACE
+    if tr is not None:
+        sp = tr.open("pareto_masks")
     device = resolve_device(device)
     Fs = [np.asarray(F, np.float64) for F in Fs]
     if valid is None:
@@ -256,6 +260,8 @@ def pareto_masks_fast(Fs: Sequence[np.ndarray],
                                          vp[on_kernel, :nb], device)
             for i, mask in zip(on_kernel, masks):
                 out[big[i]] = mask[:sizes[i]]
+    if tr is not None:
+        tr.close(sp, banks=len(Fs))
     return out
 
 

@@ -21,6 +21,7 @@ from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from ... import tracing
 from ...queryengine.plan import Query
 from ...queryengine.simulator import CostModel, DEFAULT_COST, simulate_subq
 from ...queryengine.trace import _alpha_stats
@@ -160,6 +161,10 @@ def fused_stage_eval(items: Sequence[StageRequest]) -> List[np.ndarray]:
         return [obj.stage_eval(i, Tc, Tps) for obj, i, Tc, Tps in items]
     if any(it[0].model is not model for it in items):
         raise ValueError("fused_stage_eval requires one shared model")
+    tr = tracing.TRACE
+    if tr is not None:
+        sp = tr.open("stage_eval")
+        sp_part = tr.open("stage_eval.assemble")
     thetas, metas = [], []
     for obj, i, Tc, Tps in items:
         tc_raw, _, _ = obj.split_raw(Tc, Tps)
@@ -178,7 +183,12 @@ def fused_stage_eval(items: Sequence[StageRequest]) -> List[np.ndarray]:
         emb_all[off:off + n] = obj._embs[i]
         nond_all[off:off + n] = obj._nond[i]
         off += n
-    pred = model.predict_rows(emb_all, np.concatenate(thetas, 0), nond_all)
+    theta_all = np.concatenate(thetas, 0)
+    if tr is not None:
+        tr.close(sp_part, rows=total)
+    pred = model.predict_rows(emb_all, theta_all, nond_all)
+    if tr is not None:
+        sp_part = tr.open("stage_eval.dollars")
     out: List[np.ndarray] = []
     off = 0
     for obj, _, n, tc_raw in metas:
@@ -188,4 +198,7 @@ def fused_stage_eval(items: Sequence[StageRequest]) -> List[np.ndarray]:
         dollars = lat * resource_rate(tc_raw, obj.cost) \
             + io * obj.cost.price_io_gb
         out.append(np.stack([lat, dollars], -1))
+    if tr is not None:
+        tr.close(sp_part)
+        tr.close(sp, requests=len(items))
     return out

@@ -34,10 +34,11 @@ def run(bench: str = "tpch", n_requests: int = 48, batch: int = 16,
     for lo in range(0, len(stream), batch):
         results = svc.tune_batch(stream[lo:lo + batch], weights)
         st = svc.last_batch
+        qps = st.n_queries / st.wall_time if st.wall_time else 0.0
         lat = np.array([r.chosen_objectives[0] for r in results])
         print(f"batch {lo // batch}: {st.n_queries} queries "
               f"({st.n_solved} solved, {st.n_deduped} served from cache) "
-              f"in {st.wall_time:.2f}s = {st.qps:.1f} q/s | "
+              f"in {st.wall_time:.2f}s = {qps:.1f} q/s | "
               f"mean believed latency {lat.mean():.1f}s")
         batches.append({"results": results, "stats": st})
     cache = svc.cache.stats()

@@ -69,6 +69,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from .. import tracing
 from ..core.models.features import contention_gamma
 from ..core.models.perf_model import PerfModel
 from ..core.tuning.compile_time import CompileTimeResult
@@ -101,10 +102,6 @@ class RuntimeSessionStats:
         if self.requests_total == 0:
             return 0.0
         return 1.0 - self.requests_sent / self.requests_total
-
-    @property
-    def requests_per_sec(self) -> float:
-        return self.requests_sent / self.wall_time if self.wall_time else 0.0
 
 
 @dataclasses.dataclass
@@ -248,6 +245,10 @@ class RuntimeSession:
         """True when some active entry has an outstanding optimizer request."""
         return any(e.pending is not None for e in self._active)
 
+    def pending_tags(self) -> list:
+        """Tags of the entries the next fusion round serves."""
+        return [e.tag for e in self._active if e.pending is not None]
+
     def step_round(self) -> int:
         """One fusion round over every outstanding request; 0 when idle.
 
@@ -267,10 +268,18 @@ class RuntimeSession:
             reqs.append(sr)
             cands.append(cand)
         self.fused_total += len({fusion_key(sr) for sr in reqs}) + 1  # + pick
+        tr = tracing.TRACE
+        if tr is not None:
+            sp = tr.open("round.score")
         Fs = score_requests(reqs)
+        if tr is not None:
+            tr.close(sp, requests=len(reqs))
+            sp = tr.open("round.pick")
         picks = weighted_pick_batch(
             Fs, np.asarray([e.weights for e in waiting], np.float64),
             device=self.device)
+        if tr is not None:
+            tr.close(sp)
         for e, cand, j in zip(waiting, cands, picks):
             self._step(e, cand[j])
         return len(waiting)

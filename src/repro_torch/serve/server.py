@@ -85,6 +85,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from .. import tracing
 from ..core.models.perf_model import PerfModel
 from ..core.moo.hmooc import HMOOCConfig
 from ..core.tuning.compile_time import CompileTimeResult
@@ -306,6 +307,9 @@ class ServerStats:
     # Per-flush batch cap in effect at compose time (capacity events +
     # elastic scaling visible per flush; constant without either).
     flush_caps: List[int] = dataclasses.field(default_factory=list)
+    # The call's spans and counter deltas (``tracing``); None when tracing
+    # was off.
+    trace: Optional[tracing.Trace] = None
 
     @property
     def qps(self) -> float:
@@ -405,7 +409,56 @@ class OptimizerServer:
         exactly those weights (scenario streams stamp mid-stream
         preference shifts per request at build time); otherwise the
         tenant's registered weights apply.
+
+        With tracing on (:func:`tracing.enable`, a ``torch.profiler``
+        recording when the call starts, or inside a caller's
+        :func:`tracing.recording`) ``last_run.trace`` holds the call's
+        spans: ``serve`` > ``flush`` and ``round``, each ``flush`` and
+        ``round`` with the deltas of :meth:`counters`.
         """
+        if tracing.TRACE is not None:
+            return self._serve_traced(requests, capacity_events,
+                                      tracing.TRACE)
+        if not (tracing.enabled() or tracing.profiler_recording()):
+            return self._serve(requests, capacity_events, None)
+        with tracing.recording() as tr:
+            return self._serve_traced(requests, capacity_events, tr)
+
+    def _serve_traced(self, requests, capacity_events,
+                      tr: tracing.Trace) -> List[ServedQuery]:
+        root = tr.open("serve")
+        out = self._serve(requests, capacity_events, tr)
+        tr.close(root)
+        self.last_run.trace = tr
+        return out
+
+    def counters(self) -> Dict[str, int]:
+        """The cumulative counters a trace records deltas of: K1 launches,
+        and the performance models' embedding-memo misses and
+        host-to-device copies (summed over the distinct models)."""
+        return self._counter_reader()()
+
+    def _counter_reader(self):
+        """A function that reads :meth:`counters` (what it reads is looked
+        up once, so a traced flush or round pays only the reads)."""
+        # repro: allow[KP003] reads the kernels' launch counter; routes nothing to a kernel
+        from ..kernels.pareto_filter import ops as pareto_ops  # lazy
+        models: List[PerfModel] = []
+        for m in (self.tuning.model, self.session.model_subq,
+                  self.session.model_qs):
+            if m is not None and all(m is not o for o in models):
+                models.append(m)
+
+        def read() -> Dict[str, int]:
+            return {"k1_launches": pareto_ops.LAUNCHES,
+                    "emb_misses": sum([m.emb_misses for m in models]),
+                    "h2d_copies": sum([m.h2d_copies for m in models])}
+        return read
+
+    def _serve(self, requests: Sequence[StreamRequest],
+               capacity_events: Sequence[Tuple[float, int]],
+               tr: Optional[tracing.Trace]) -> List[ServedQuery]:
+        counters = self._counter_reader() if tr is not None else None
         wall0 = time.perf_counter()
         cfgv = self.config
         sched = self.scheduler
@@ -502,6 +555,9 @@ class OptimizerServer:
         while pos < len(incoming) or sched.total_waiting() or in_flight:
             apply_capacity(t)
             if flush_due(t):
+                if tr is not None:
+                    sp = tr.open("flush")
+                    c0 = counters()
                 cap = cur_cap()
                 # Overload triage first: strict-SLO requests whose budget is
                 # already unmeetable are rejected here — first-class
@@ -516,6 +572,10 @@ class OptimizerServer:
                         if self.elastic else 0.0)
                 admits = sched.compose(t, cap, lead)
                 if not admits:
+                    if tr is not None:
+                        tr.close(sp, rids=[], cap=cap, n_solved=0,
+                                 n_cheap=0,
+                                 counters=_deltas(c0, counters()))
                     continue           # everything waiting was shed
                 batch = [a.item for a in admits]
                 n_batches += 1
@@ -543,6 +603,8 @@ class OptimizerServer:
                 tune_windows.append((self.tuning.last_batch.wall_time,
                                      len(batch)))
                 joined_running = self.session.n_active > 0
+                if tr is not None:
+                    sp_admit = tr.open("session_admit")
                 for s, ct, w in zip(batch, cts, batch_w):
                     s.ct = ct
                     s.joined_running = joined_running
@@ -553,6 +615,8 @@ class OptimizerServer:
                         pool_scope=(s.tenant if cfgv.isolate_tenant_pools
                                     else None))
                     in_flight[s.rid] = s
+                if tr is not None:
+                    tr.close(sp_admit)
                 # One window feeds both the clock charge and the reserve
                 # EWMA: the whole flush — the batched solve plus each
                 # query's initial AQE planning step inside admit().
@@ -574,18 +638,34 @@ class OptimizerServer:
                 for s in batch:
                     s.compiled_s = t
                 admit_arrived(t)
+                if tr is not None:
+                    tr.close(sp, rids=[s.rid for s in batch], cap=cap,
+                             n_solved=self.tuning.last_batch.n_solved,
+                             n_cheap=n_cheap,
+                             counters=_deltas(c0, counters()))
                 continue
             if self.session.has_pending() or self.session.n_active:
+                if tr is not None:
+                    sp = tr.open("round")
+                    c0 = counters()
+                    rids = self.session.pending_tags()
                 flushes_since_round = 0
                 t0 = time.perf_counter()
                 self.session.step_round()
+                if tr is not None:
+                    sp_retire = tr.open("round.retire")
                 done = self.session.retire_ready()
                 results = self.session.realize(done) if done else []
+                if tr is not None:
+                    tr.close(sp_retire, retired=len(done))
                 t += (cfgv.clock.round_cost_s() if cfgv.clock is not None
                       else time.perf_counter() - t0)
                 if done:
                     finish(done, results, t)
                 admit_arrived(t)
+                if tr is not None:
+                    tr.close(sp, rids=rids,
+                             counters=_deltas(c0, counters()))
                 continue
             # Idle: jump the simulated clock to the next event (arrival,
             # flush deadline, or capacity change — a cap drop can make the
@@ -787,6 +867,11 @@ def _server_device(device, tuning, session):
             raise ValueError(f"device={dev} conflicts with the prebuilt "
                              f"{name}'s device={d}")
     return dev
+
+
+def _deltas(before: Dict[str, int], after: Dict[str, int]
+            ) -> Dict[str, int]:
+    return {k: after[k] - before[k] for k in after}
 
 
 def jain_index(x: Sequence[float]) -> float:

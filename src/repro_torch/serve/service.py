@@ -30,6 +30,7 @@ from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
+from .. import tracing
 from ..core.models.perf_model import PerfModel
 from ..device import resolve_device
 from ..core.moo.hmooc import HMOOCConfig, HmoocPlan
@@ -55,10 +56,6 @@ class BatchStats:
     n_cheap: int = 0             # degraded: solved on reused template banks
     n_default_theta: int = 0     # degraded: served the Spark defaults
     wall_time: float = 0.0
-
-    @property
-    def qps(self) -> float:
-        return self.n_queries / self.wall_time if self.wall_time else 0.0
 
 
 class ResponseCache:
@@ -232,6 +229,9 @@ class TuningService:
         so they can never be served to a later full-quality request.
         """
         t0 = time.perf_counter()
+        tr = tracing.TRACE
+        if tr is not None:
+            sp = tr.open("tune")
         per_q_weights = _expand_weights(weights, len(queries))
         if tenants is not None and len(tenants) != len(queries):
             raise ValueError(
@@ -297,6 +297,8 @@ class TuningService:
             setattr(self.totals, f.name,
                     getattr(self.totals, f.name) + getattr(self.last_batch,
                                                            f.name))
+        if tr is not None:
+            tr.close(sp, n=len(queries), n_solved=n_solved)
         return results  # type: ignore[return-value]
 
     def _response_key(self, q: Query, w: Weights, tenant) -> tuple:
@@ -327,6 +329,9 @@ class TuningService:
         Returns the number of actual solves (post-dedup).
         """
         model = self._model
+        tr = tracing.TRACE
+        if tr is not None:
+            sp = tr.open("tune.responses")
         # -- response planning: dedup within and across batches ------------
         keys: dict = {}
         pending: dict = {}            # key -> first qi solving it this run
@@ -350,13 +355,20 @@ class TuningService:
                     continue
                 pending[key] = qi
             solved.append(qi)
+        if tr is not None:
+            tr.close(sp)
         if solved:
             # -- embedding prefetch: one GTN dispatch for the whole run ----
+            if tr is not None:
+                sp = tr.open("tune.embed")
             pairs = []
             for qi in solved:
                 pairs.extend((queries[qi], i)
                              for i in range(queries[qi].n_subqs))
             model.embed_many(pairs)
+            if tr is not None:
+                tr.close(sp)
+                sp = tr.open("tune.esets")
             objs = {qi: StageObjectives(queries[qi], model=model,
                                         cost=self.cost) for qi in solved}
             # -- effective-set planning ------------------------------------
@@ -399,12 +411,16 @@ class TuningService:
                     effective_set=eset, device=self.device)
                 if not plans[qi].reused_banks:
                     pending_eset[tk] = (qi, fp)
+            if tr is not None:
+                tr.close(sp)
             # -- lockstep rounds: one fused model call per solver phase ----
             while True:
                 active = [qi for qi in solved
                           if qi in plans and not plans[qi].done]
                 if not active and not waiting:
                     break
+                if tr is not None:
+                    sp = tr.open("tune.phase")
                 items, spans = [], []
                 for qi in active:
                     reqs = plans[qi].requests()
@@ -414,7 +430,13 @@ class TuningService:
                 evals = fused_stage_eval(items)
                 off = 0
                 for qi, n in spans:
+                    if tr is not None:
+                        sp_feed = tr.open("hmooc.feed")
+                        phase = ("assign" if plans[qi].banks_ready
+                                 else "banks")
                     plans[qi].feed(evals[off:off + n])
+                    if tr is not None:
+                        tr.close(sp_feed, pos=qi, phase=phase)
                     off += n
                 still = []
                 for qi, owner_qi in waiting:
@@ -429,7 +451,11 @@ class TuningService:
                     else:
                         still.append((qi, owner_qi))
                 waiting = still
+                if tr is not None:
+                    tr.close(sp, plans=len(active), requests=len(items))
             # -- finalize in request order ---------------------------------
+            if tr is not None:
+                sp = tr.open("tune.finalize")
             for qi in solved:
                 q, w = queries[qi], per_q_weights[qi]
                 if qi in deferred_lookup:
@@ -445,6 +471,8 @@ class TuningService:
                 results[qi] = ct
                 if self._results is not None:
                     self._results.put(keys[qi], ct)
+            if tr is not None:
+                tr.close(sp)
         for qi, key in deferred_gets:
             results[qi] = self._results.get(key)
         return len(solved)

@@ -1087,6 +1087,39 @@ def test_server_on_card_matches_host(cuda_device, kind):
         (hs.flush_windows, hs.flush_caps, hs.tenant_slots)
 
 
+def test_traced_server_counts_every_k1_launch_on_card(cuda_device):
+    """A model-backed server traced on the card: the K1 launch deltas of
+    its flush and round spans add up to the change in
+    ``pareto_filter.LAUNCHES`` over the call, all of them in the flushes
+    (a runtime round picks through ``runtime_pick``)."""
+    from repro_torch import tracing
+    from repro_torch.serve import OptimizerServer, ServerConfig
+    gtn = GTNConfig(d_model=16, n_heads=2, n_layers=1, d_ff=32)
+    subq = PerfModel(ModelConfig("subq", 19, gtn, (16,)), seed=0,
+                     device=cuda_device)
+    qs = PerfModel(ModelConfig("qs", 10, gtn, (16,)), seed=1,
+                   device=cuda_device)
+    srv = OptimizerServer(
+        config=ServerConfig(max_batch=4),
+        tuning=TuningService(model=subq, cfg=STREAM_CFG, device=cuda_device),
+        session=RuntimeSession(model_subq=subq, model_qs=qs,
+                               device=cuda_device))
+    reqs, _ = _stream_case("single")
+    before = pareto_ops.LAUNCHES
+    tracing.enable()
+    try:
+        srv.serve(reqs)
+    finally:
+        tracing.disable()
+    spans = srv.last_run.trace.spans
+    k1 = {name: sum(sp.attrs["counters"]["k1_launches"] for sp in spans
+                    if sp.name == name) for name in ("flush", "round")}
+    assert k1["flush"] + k1["round"] == pareto_ops.LAUNCHES - before > 0
+    assert k1["round"] == 0
+    solved = sum(sp.attrs["n_solved"] for sp in spans if sp.name == "flush")
+    assert 0 < k1["flush"] <= 2 * solved
+
+
 def test_fleet_on_card_matches_host(cuda_device, tmp_path):
     from repro_torch.serve import (CacheStore, OptimizerFleet, ServerConfig,
                                    ServiceTimeModel)

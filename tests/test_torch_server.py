@@ -134,8 +134,9 @@ def _timeline(srv, served):
     rows = [(s.rid, s.tenant, s.status, s.arrival_s, s.admitted_s,
              s.compiled_s, s.finished_s, s.joined_running, s.worker)
             for s in served]
+    # ``trace`` is the port's own (spans on the wall clock; None here).
     stats = {f.name: getattr(st, f.name) for f in dataclasses.fields(st)
-             if f.name not in ("wall_time_s", "tune_windows")}
+             if f.name not in ("wall_time_s", "tune_windows", "trace")}
     reserves = [(t.name, t.reserve_q_s, t.deficit, t.slots_granted,
                  t.n_shed, t.n_degraded, t.n_rate_limited)
                 for t in srv.scheduler.states()]
