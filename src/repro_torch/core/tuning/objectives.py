@@ -17,6 +17,7 @@ list-structured DAG aggregation (paper §5.1.2).
 """
 from __future__ import annotations
 
+import itertools
 from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -38,6 +39,18 @@ def resource_rate(tc_raw: np.ndarray, cost: CostModel = DEFAULT_COST
     k1, k2, k3 = tc_raw[:, 0], tc_raw[:, 1], tc_raw[:, 2]
     return (k1 * k3 * cost.price_core_h + k2 * k3 * cost.price_mem_gb_h) \
         / 3600.0
+
+
+# The leading θc columns resource_rate reads.
+_RATE_COLS = 3
+
+
+def _dollars(pred: np.ndarray, tc_raw: np.ndarray, cost: CostModel
+             ) -> np.ndarray:
+    """(n, 2) [latency, io] predictions → (n, 2) [latency, cost]."""
+    lat, io = pred[:, 0], pred[:, 1]
+    return np.stack([lat, lat * resource_rate(tc_raw, cost)
+                     + io * cost.price_io_gb], -1)
 
 
 class StageObjectives:
@@ -143,16 +156,20 @@ StageRequest = Tuple["StageObjectives", int, np.ndarray, np.ndarray]
 def fused_stage_eval(items: Sequence[StageRequest]) -> List[np.ndarray]:
     """Evaluate many stage requests — across subQs *and* queries — at once.
 
-    The model-backed path concatenates every request's regressor rows
-    (per-row embedding ⊕ θ ⊕ nondecision) into a single bucket-padded
-    :meth:`PerfModel.predict_rows` dispatch, then finishes the float64
-    latency→dollars arithmetic per request.  Per-request outputs are
-    identical to calling ``obj.stage_eval(i, Tc, Tps)`` one by one: row j of
-    a padded batch equals row j of the per-request call, and the cost
-    arithmetic is element-wise.  All requests must share one model (the
-    serving layer batches per service); the oracle backend (``model is
-    None``) falls back to per-request evaluation, which is already one
-    vectorized simulator call each.
+    The model-backed path writes every request's regressor rows (per-row
+    embedding ⊕ θ ⊕ nondecision) into one set of buffers in a single pass
+    for one bucket-padded :meth:`PerfModel.predict_rows` dispatch.  Of the
+    raw values only the three θc columns :func:`resource_rate` reads (k1
+    cores, k2 memory, k3 instances) are converted, once over all rows, and
+    the float64 latency→dollars arithmetic runs over all rows at once when
+    every request shares one :class:`CostModel` (per request otherwise).
+    Per-request outputs are identical to calling ``obj.stage_eval(i, Tc,
+    Tps)`` one by one: row j of a padded batch equals row j of the
+    per-request call, and the unit→raw and cost arithmetic are element-wise.
+    All requests must share one model (the serving layer batches per
+    service); the oracle backend (``model is None``) falls back to
+    per-request evaluation, which is already one vectorized simulator call
+    each.
     """
     if not items:
         return []
@@ -165,39 +182,39 @@ def fused_stage_eval(items: Sequence[StageRequest]) -> List[np.ndarray]:
     if tr is not None:
         sp = tr.open("stage_eval")
         sp_part = tr.open("stage_eval.assemble")
-    thetas, metas = [], []
-    for obj, i, Tc, Tps in items:
-        tc_raw, _, _ = obj.split_raw(Tc, Tps)
-        theta = obj.theta_rows(Tc, Tps)
-        thetas.append(theta)
-        metas.append((obj, i, theta.shape[0], tc_raw))
-    total = sum(n for _, _, n, _ in metas)
-    emb0 = items[0][0]._embs[items[0][1]]
-    nond0 = items[0][0]._nond[items[0][1]]
-    # Per-row emb/nond are broadcast straight into the dispatch buffers —
-    # no per-request np.repeat intermediates on the host.
-    emb_all = np.empty((total, emb0.shape[0]), np.float32)
-    nond_all = np.empty((total, nond0.shape[0]), np.float32)
-    off = 0
-    for obj, i, n, _ in metas:
-        emb_all[off:off + n] = obj._embs[i]
-        nond_all[off:off + n] = obj._nond[i]
-        off += n
-    theta_all = np.concatenate(thetas, 0)
+    obj0, i0 = items[0][0], items[0][1]
+    d_c = obj0.d_c
+    bounds = list(itertools.accumulate((it[2].shape[0] for it in items),
+                                       initial=0))
+    spans = list(zip(bounds[:-1], bounds[1:]))
+    total = bounds[-1]
+    # Per-row emb/nond are broadcast and θ rows cast straight into the
+    # dispatch buffers — no per-request intermediates on the host.
+    emb_all = np.empty((total, obj0._embs[i0].shape[0]), np.float32)
+    nond_all = np.empty((total, obj0._nond[i0].shape[0]), np.float32)
+    theta_all = np.empty((total, d_c + obj0.d_ps), np.float32)
+    tc_unit = np.empty((total, _RATE_COLS), np.float64)
+    for (obj, i, Tc, Tps), (a, b) in zip(items, spans):
+        emb_all[a:b] = obj._embs[i]
+        nond_all[a:b] = obj._nond[i]
+        theta_all[a:b, :d_c] = Tc
+        theta_all[a:b, d_c:] = Tps
+        tc_unit[a:b] = Tc[:, :_RATE_COLS]
+    tc_raw = np.empty_like(tc_unit)
+    for j, p in enumerate(obj0.cs.params[:_RATE_COLS]):
+        tc_raw[:, j] = p.to_raw(tc_unit[:, j])
     if tr is not None:
         tr.close(sp_part, rows=total)
     pred = model.predict_rows(emb_all, theta_all, nond_all)
     if tr is not None:
         sp_part = tr.open("stage_eval.dollars")
-    out: List[np.ndarray] = []
-    off = 0
-    for obj, _, n, tc_raw in metas:
-        p = pred[off:off + n]
-        off += n
-        lat, io = p[:, 0], p[:, 1]
-        dollars = lat * resource_rate(tc_raw, obj.cost) \
-            + io * obj.cost.price_io_gb
-        out.append(np.stack([lat, dollars], -1))
+    cost = obj0.cost
+    if all(it[0].cost is cost for it in items):
+        F = _dollars(pred, tc_raw, cost)
+        out = [F[a:b] for a, b in spans]
+    else:
+        out = [_dollars(pred[a:b], tc_raw[a:b], it[0].cost)
+               for it, (a, b) in zip(items, spans)]
     if tr is not None:
         tr.close(sp_part)
         tr.close(sp, requests=len(items))
