@@ -30,7 +30,7 @@ from repro_torch.serve.server import OptimizerServer, ServerConfig
 from repro_torch.serve.service import TuningService
 
 from . import correct, devtrace, traffic
-from .bench import Benchmark, metric_module
+from .bench import Benchmark, QuerySource, metric_module
 from .probe import Probe
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "repro")
@@ -128,16 +128,17 @@ def forbidden_modules() -> List[str]:
                   & set(FORBIDDEN))
 
 
-def setup(cfg: dict, mix: dict, seed: int, seconds: float, device):
-    """Models, server and traffic of one run, warmed up (set-up)."""
+def setup(cfg: dict, mix: dict, queries: QuerySource, seed: int,
+          seconds: float, device):
+    """Models, server and traffic of one run, warmed up (set-up);
+    ``queries`` is the configuration's ``Benchmark.queries``."""
     cfgs = model_configs(cfg)
     dev_w, host_w = make_weights(cfgs, cfg["models"]["model_seed"], device)
     models = {kind: PerfModel(c, params=dev_w[kind], device=device)
               for kind, c in cfgs.items()}
     del dev_w
     srv = build_server(cfg, models, device)
-    tr = traffic.build(mix, cfg["benchmark"], seed, seconds,
-                       cfg["query_seed"])
+    tr = traffic.build(mix, queries, seed, seconds, cfg["query_seed"])
     step = srv.config.max_batch
     tenants = ["default"] * step
     for lo in range(0, len(tr.setup), step):
@@ -188,7 +189,8 @@ def run(bench: Benchmark, cell_name: str, seed: int, seconds: float,
     for key, val in (overrides or {}).items():
         cfg[key] = {**cfg[key], **val} if isinstance(val, dict) else val
     mix = bench.traffic(cell["traffic"])
-    srv, models, host_w, tr, cfgs = setup(cfg, mix, seed, seconds, device)
+    srv, models, host_w, tr, cfgs = setup(cfg, mix, bench.queries(cfg), seed,
+                                          seconds, device)
     served, probe, t0, t1, summary = window(srv, models, tr, seed, trace,
                                             cfg["check"]["sample"], device)
     cuda = torch.device(device).type == "cuda"

@@ -14,9 +14,10 @@ them as it takes its own.  ``portbench/tests`` hold each copy equal to
 """
 from __future__ import annotations
 
+import functools
 import math
 import zlib
-from typing import Dict, List, Sequence, Tuple
+from typing import Callable, Dict, List, Sequence, Tuple
 
 import numpy as np
 
@@ -222,7 +223,11 @@ def zipf_draws(benchmark: str, n: int, seed: int, zipf_a: float = 1.3,
                n_variants: int = 3) -> List[Tuple[int, int]]:
     """``serving_stream``'s (template, variant) draws: Zipf template ranks
     over a seeded permutation, variant 0 twice as likely as 1, and so on."""
-    n_t = N_TEMPLATES[benchmark]
+    return _zipf_draws(N_TEMPLATES[benchmark], n, seed, zipf_a, n_variants)
+
+
+def _zipf_draws(n_t: int, n: int, seed: int, zipf_a: float = 1.3,
+                n_variants: int = 3) -> List[Tuple[int, int]]:
     rng = np.random.default_rng(np.random.SeedSequence([seed, 0xC0FFEE]))
     rank_of = rng.permutation(n_t)
     p = 1.0 / (1.0 + np.arange(n_t, dtype=np.float64)) ** zipf_a
@@ -241,11 +246,17 @@ def build_queries(benchmark: str, pairs: Sequence[Tuple[int, int]],
                   query_seed: int = 0) -> List[Query]:
     """Queries for (template, variant) pairs; a repeated pair is one object,
     as ``serving_stream`` hands it out."""
+    return _build_queries(functools.partial(make_query, benchmark), pairs,
+                          query_seed)
+
+
+def _build_queries(make: Callable[..., Query],
+                   pairs: Sequence[Tuple[int, int]],
+                   query_seed: int) -> List[Query]:
     built: Dict[Tuple[int, int], Query] = {}
     out = []
     for t, v in pairs:
         if (t, v) not in built:
-            built[(t, v)] = make_query(benchmark, t, variant=v,
-                                       seed=query_seed)
+            built[(t, v)] = make(t, variant=v, seed=query_seed)
         out.append(built[(t, v)])
     return out

@@ -7,7 +7,8 @@ A mix file (``portbench/traffic/<mix>.json``) holds:
   open-loop Poisson stream; a run offers ``round(r * seconds)`` requests
   over about ``seconds`` of the server's clock;
 * ``templates``: ``{"zipf_a": a, "seed": s}``, ``serving_stream``'s Zipf
-  draw over the configuration's templates;
+  draw over the templates of the configuration's query source
+  (``Benchmark.queries``);
 * ``variants``: ``{"policy": "fresh"}``, every request a parametric
   variant never seen before in the run or its set-up, or
   ``{"policy": "zipf", "n_variants": v}``, ``serving_stream``'s own
@@ -26,7 +27,7 @@ orders both and picks the fresh variants, the weights and the warm-up.
 from __future__ import annotations
 
 import dataclasses
-from typing import List
+from typing import List, Union
 
 import numpy as np
 
@@ -34,6 +35,7 @@ from repro_torch.queryengine.plan import Query
 from repro_torch.queryengine.workloads import StreamRequest
 
 from . import frozen
+from .bench import QuerySource, synthetic_queries
 
 # Variant ids a seed owns: [base, base + SPAN).  Window requests take the
 # first block, the warm-up the second, the set-up solves the third, so no
@@ -54,16 +56,19 @@ def _sub_seed(seed: int, tag: int) -> int:
     return int(np.random.SeedSequence([seed, tag]).generate_state(1)[0])
 
 
-def _stream(benchmark, pairs, times, query_seed) -> List[StreamRequest]:
-    queries = frozen.build_queries(benchmark, pairs, query_seed)
+def _stream(source, pairs, times, query_seed) -> List[StreamRequest]:
+    queries = frozen._build_queries(source.make, pairs, query_seed)
     return [StreamRequest(rid=i, query=q, arrival_s=float(t))
             for i, (q, t) in enumerate(zip(queries, times))]
 
 
-def build(mix: dict, benchmark: str, seed: int, seconds: float,
-          query_seed: int = 0) -> Traffic:
-    """The run's requests and set-up queries; a pure function of its
-    arguments."""
+def build(mix: dict, source: Union[QuerySource, str], seed: int,
+          seconds: float, query_seed: int = 0) -> Traffic:
+    """The run's requests and set-up queries, built from ``source``'s
+    templates (a benchmark's name stands for its synthetic generator); a
+    pure function of its arguments."""
+    if isinstance(source, str):
+        source = synthetic_queries(source)
     seed = int(seed) % (1 << 63)
     arr = mix["arrivals"]
     if arr["kind"] != "poisson":
@@ -71,18 +76,18 @@ def build(mix: dict, benchmark: str, seed: int, seconds: float,
     rate = float(arr["rate_qps"])
     zipf_a = float(mix["templates"]["zipf_a"])
     var = mix["variants"]
-    n_t = frozen.N_TEMPLATES[benchmark]
+    n_t = source.n_templates
     n = max(1, int(round(rate * seconds)))
     base = _SPAN * (seed + 1)
     order = np.random.default_rng(np.random.SeedSequence(
         [seed, 0x0D3E])).permutation(n)
     if var["policy"] == "fresh":
-        draws = frozen.zipf_draws(benchmark, n, int(mix["templates"]["seed"]),
-                                  zipf_a)
+        draws = frozen._zipf_draws(n_t, n, int(mix["templates"]["seed"]),
+                                   zipf_a)
         pairs = [(draws[j][0], base + i) for i, j in enumerate(order)]
     elif var["policy"] == "zipf":
-        draws = frozen.zipf_draws(benchmark, n, int(mix["templates"]["seed"]),
-                                  zipf_a, int(var["n_variants"]))
+        draws = frozen._zipf_draws(n_t, n, int(mix["templates"]["seed"]),
+                                   zipf_a, int(var["n_variants"]))
         pairs = [draws[j] for j in order]
     else:
         raise ValueError(f"unknown variant policy {var['policy']!r}")
@@ -90,14 +95,14 @@ def build(mix: dict, benchmark: str, seed: int, seconds: float,
                    prepend=0.0)
     gap_order = np.random.default_rng(np.random.SeedSequence(
         [seed, 0x6A95])).permutation(n)
-    window = _stream(benchmark, pairs, np.cumsum(gaps[gap_order]),
+    window = _stream(source, pairs, np.cumsum(gaps[gap_order]),
                      query_seed)
 
     setup = mix["setup"]
     w_seed = _sub_seed(seed, 0x3A11)
     n_w = int(setup["warmup_requests"])
-    w_draws = frozen.zipf_draws(benchmark, n_w, w_seed, zipf_a)
-    warmup = _stream(benchmark,
+    w_draws = frozen._zipf_draws(n_t, n_w, w_seed, zipf_a)
+    warmup = _stream(source,
                      [(t, base + _WARM + j) for j, (t, _) in
                       enumerate(w_draws)],
                      frozen.poisson_arrivals(rate, n_w, w_seed), query_seed)
@@ -109,5 +114,6 @@ def build(mix: dict, benchmark: str, seed: int, seconds: float,
     else:
         raise ValueError(f"unknown set-up policy {setup['solve']!r}")
     return Traffic(window=window, warmup=warmup,
-                   setup=frozen.build_queries(benchmark, solve, query_seed),
+                   setup=frozen._build_queries(source.make, solve,
+                                               query_seed),
                    rate_qps=rate)

@@ -45,13 +45,15 @@ def main(argv=None) -> int:
     c = bench.cell(args.workload)
     cfg = bench.config(c["config"])
     mix = bench.traffic(c["traffic"])
-    srv, _, _, _, _ = cell.setup(cfg, mix, args.seed, args.seconds, dev)
+    queries = bench.queries(cfg)
+    srv, _, _, _, _ = cell.setup(cfg, mix, queries, args.seed, args.seconds,
+                                 dev)
     print(json.dumps({"setup_s": time.perf_counter() - T_START,
                       "card": torch.cuda.get_device_name(0)}), flush=True)
     for k, rate in enumerate(float(r) for r in args.rates.split(",")):
         m = json.loads(json.dumps(mix))
         m["arrivals"]["rate_qps"] = rate
-        tr = traffic.build(m, cfg["benchmark"], args.seed + 1000 * (k + 1),
+        tr = traffic.build(m, queries, args.seed + 1000 * (k + 1),
                            args.seconds, cfg["query_seed"])
         t0 = time.perf_counter()
         served = srv.serve(tr.window)

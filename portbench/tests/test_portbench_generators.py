@@ -82,3 +82,70 @@ def test_zipf_mix_is_serving_streams_own():
                                                 for r in want])))
     solved = {q.qid for q in tr.setup}
     assert {r.query.qid for r in tr.window} <= solved
+
+
+def _frozen_traffic(mix, benchmark, seed, seconds, query_seed):
+    """A cell's traffic built straight from the frozen generator's public
+    functions: ``traffic.build`` as it stood before a configuration could
+    name its own query source."""
+    seed = int(seed) % (1 << 63)
+    rate = float(mix["arrivals"]["rate_qps"])
+    zipf_a = float(mix["templates"]["zipf_a"])
+    var = mix["variants"]
+    n = max(1, int(round(rate * seconds)))
+    base = traffic._SPAN * (seed + 1)
+    order = np.random.default_rng(np.random.SeedSequence(
+        [seed, 0x0D3E])).permutation(n)
+    if var["policy"] == "fresh":
+        draws = frozen.zipf_draws(benchmark, n, mix["templates"]["seed"],
+                                  zipf_a)
+        pairs = [(draws[j][0], base + i) for i, j in enumerate(order)]
+    else:
+        draws = frozen.zipf_draws(benchmark, n, mix["templates"]["seed"],
+                                  zipf_a, var["n_variants"])
+        pairs = [draws[j] for j in order]
+    gaps = np.diff(frozen.poisson_arrivals(rate, n, mix["arrivals"]["seed"]),
+                   prepend=0.0)
+    gap_order = np.random.default_rng(np.random.SeedSequence(
+        [seed, 0x6A95])).permutation(n)
+    window = (frozen.build_queries(benchmark, pairs, query_seed),
+              np.cumsum(gaps[gap_order]))
+    w_seed = traffic._sub_seed(seed, 0x3A11)
+    n_w = mix["setup"]["warmup_requests"]
+    w_draws = frozen.zipf_draws(benchmark, n_w, w_seed, zipf_a)
+    warmup = (frozen.build_queries(
+        benchmark, [(t, base + traffic._WARM + j)
+                    for j, (t, _) in enumerate(w_draws)], query_seed),
+        frozen.poisson_arrivals(rate, n_w, w_seed))
+    n_t = frozen.N_TEMPLATES[benchmark]
+    if mix["setup"]["solve"] == "templates":
+        solve = [(t, base + traffic._SETUP + t) for t in range(n_t)]
+    else:
+        solve = [(t, v) for t in range(n_t)
+                 for v in range(var["n_variants"])]
+    return window, warmup, frozen.build_queries(benchmark, solve, query_seed)
+
+
+_BENCH = Benchmark()
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("cell", sorted(_BENCH.cells))
+def test_cells_offer_the_frozen_generators_traffic(cell, seed):
+    """Every cell, through its configuration's query source, offers the
+    requests, arrival times and set-up solves that the frozen generator's
+    own functions give, at the benchmark's run length."""
+    cfg = _BENCH.config(_BENCH.cells[cell]["config"])
+    mix = _BENCH.traffic(_BENCH.cells[cell]["traffic"])
+    seconds = _BENCH.spec["run_seconds"]
+    got = traffic.build(mix, _BENCH.queries(cfg), seed, seconds,
+                        cfg["query_seed"])
+    window, warmup, setup = _frozen_traffic(mix, cfg["benchmark"], seed,
+                                            seconds, cfg["query_seed"])
+    for stream, (queries, times) in ((got.window, window),
+                                     (got.warmup, warmup)):
+        assert [r.query.qid for r in stream] == [q.qid for q in queries]
+        assert all(r.query == q for r, q in zip(stream, queries))
+        assert [r.arrival_s for r in stream] == [float(t) for t in times]
+    assert [q.qid for q in got.setup] == [q.qid for q in setup]
+    assert got.setup == setup

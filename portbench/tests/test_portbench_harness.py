@@ -111,6 +111,8 @@ def test_nothing_the_benchmark_loads_is_jax_or_repro():
         b = bench.Benchmark()
         for m in b.spec["end_to_end"] + b.spec["per_layer"]:
             bench.metric_module(m["name"])
+        for p in sorted(bench.QUERIES.glob("*.py")):
+            bench.query_module(p.stem)
         bad = sorted({{n.split(".")[0] for n in sys.modules}}
                      & {{"jax", "jaxlib", "flax", "repro"}})
         assert not bad, bad
@@ -160,3 +162,89 @@ def test_command_needs_the_program(tmp_path):
          "tpch.fresh.steady", "--seed", "1", "--seconds", "1", "--trace",
          "0"], cwd=tmp_path, capture_output=True, text=True, timeout=300)
     assert out.returncode != 0 and out.stdout.strip() == ""
+
+
+TEST_QUERIES = ROOT / "portbench" / "tests" / "queries"
+
+
+def _generators():
+    return sorted((ROOT / "portbench" / "queries").glob("*.py")) + \
+        sorted(TEST_QUERIES.glob("*.py"))
+
+
+@pytest.mark.parametrize("path", _generators(), ids=lambda p: p.stem)
+def test_query_generators_import_numpy_stdlib_and_plan_only(path):
+    import ast
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        for n in names:
+            assert (n.split(".")[0] in sys.stdlib_module_names
+                    or n.split(".")[0] == "numpy"
+                    or n == "repro_torch.queryengine.plan"), (path, n)
+
+
+def _bench_with(tmp_path, **cfg_changes):
+    """BENCHMARK.json with one more configuration, ``toy`` (the TPC-H
+    configuration with ``cfg_changes``), and its cell ``toy.fresh.steady``
+    on the fresh TPC-H mix; generators come from ``tests/queries``."""
+    cfg = json.loads((ROOT / "portbench/configs/tpch.json").read_text())
+    del cfg["benchmark"]
+    cfg.update(name="toy", **cfg_changes)
+    (tmp_path / "toy.json").write_text(json.dumps(cfg))
+    spec = json.loads(json.dumps(SPEC))
+    spec["configs"].append({"name": "toy", "source": "a test",
+                            "file": str(tmp_path / "toy.json"),
+                            "reduced": [], "why": "a test"})
+    spec["workloads"].append({"name": "toy.fresh.steady", "config": "toy",
+                              "traffic": "tpch.fresh.steady", "chips": 1,
+                              "why": "a test"})
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(spec))
+    return bench_mod.Benchmark(tmp_path / "BENCHMARK.json",
+                               query_dir=TEST_QUERIES)
+
+
+def test_configuration_brings_its_own_queries(tmp_path, tiny):
+    import time
+    b = _bench_with(tmp_path, queries="toy_star", n_templates=4)
+    out, rec = cell.run(b, "toy.fresh.steady", 2 ** 31 + 3, 3.0, False,
+                        "cpu", time.perf_counter(), overrides=tiny)
+    assert out["correct"], out["checks"]
+    assert out["attempted"] == round(14.0 * 3.0) and out["failed"] == 0
+    assert out["metrics"]["setup_s"]["value"] > 0
+    assert {s.request.query.benchmark for s in rec.served} == {"toy_star"}
+    assert {s.request.query.template for s in rec.served} <= set(range(4))
+
+
+def test_unknown_query_generator_is_refused(tmp_path):
+    b = _bench_with(tmp_path, queries="no_such_generator", n_templates=4)
+    with pytest.raises(FileNotFoundError, match="portbench/queries/"):
+        b.queries(b.config("toy"))
+
+
+def test_template_count_must_match_the_generator(tmp_path):
+    b = _bench_with(tmp_path, queries="toy_star", n_templates=5)
+    with pytest.raises(ValueError, match="n_templates 5.* have 4"):
+        b.queries(b.config("toy"))
+    b = bench_mod.Benchmark()
+    cfg = dict(b.config("tpch"), n_templates=21)
+    with pytest.raises(ValueError, match="n_templates 21.* have 22"):
+        b.queries(cfg)
+
+
+def test_generator_name_must_be_its_file_name(tmp_path):
+    (tmp_path / "other_star.py").write_text(
+        (TEST_QUERIES / "toy_star.py").read_text())
+    with pytest.raises(ValueError, match="declares NAME 'toy_star'"):
+        bench_mod.query_module("other_star", tmp_path)
+
+
+def test_a_query_tagged_otherwise_is_refused():
+    mod = bench_mod.query_module("toy_star", TEST_QUERIES)
+    src = bench_mod.QuerySource("tpch", mod.N_TEMPLATES, mod.make_query)
+    with pytest.raises(ValueError, match="tagged 'toy_star'"):
+        src.make(0, variant=0, seed=0)
