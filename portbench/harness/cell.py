@@ -111,9 +111,8 @@ def build_server(cfg: dict, models: Dict[str, PerfModel], device
 
 def widths(cfg: dict, cfgs: Dict[str, ModelConfig]) -> dict:
     g = cfgs["subq"].gtn
-    return {"n_pad": cfgs["subq"].pad, "feat_dim": g.feat_dim,
-            "pe_dim": g.pe_dim, "d_model": g.d_model, "n_heads": g.n_heads,
-            "n_layers": g.n_layers, "d_ff": g.d_ff,
+    return {"feat_dim": g.feat_dim, "pe_dim": g.pe_dim, "d_model": g.d_model,
+            "n_heads": g.n_heads, "n_layers": g.n_layers, "d_ff": g.d_ff,
             "reg_in": cfgs["subq"].reg_in, "hidden": cfgs["subq"].hidden,
             "n_targets": cfgs["subq"].n_targets}
 

@@ -9,13 +9,15 @@ filter compares on CUDA cores.
 The operation and byte counts follow ``chip_smoke.py``'s ``bound_ms`` and
 ``pareto_bound_ms``, copied here so that the
 yardstick cannot move.  Each counts what the call's inputs need (each input
-byte read once, each output byte written once, padding rows not counted);
+byte read once, each output byte written once, padding rows and padding
+nodes not counted);
 a layer's share is this bound over the layer's wall span, so the share
 reads the same work whichever route (kernel or host) does it, and cannot
 pass 100 %.
 """
 from __future__ import annotations
 
+import collections
 from typing import Iterable, Sequence, Tuple
 
 HBM_BYTES_PER_S = 3.35e12
@@ -37,23 +39,24 @@ def _mlp_params(dims: Sequence[int]) -> int:
     return sum(a * b + b for a, b in zip(dims[:-1], dims[1:]))
 
 
-def gtn_bound_s(graphs: int, w: dict) -> float:
-    """Embedding ``graphs`` subQ graphs of ``n_pad`` nodes: the products of
-    the input projections, each layer's QKV, scores, structure bias,
-    context, output and FFN; the graphs read once, the embeddings written
-    once, the weights read once."""
-    N, F, K = w["n_pad"], w["feat_dim"], w["pe_dim"]
+def gtn_bound_s(nodes: Sequence[int], w: dict) -> float:
+    """Embedding subQ graphs of ``nodes`` operators each (their own counts,
+    not the program's padding): the products of the input projections,
+    each layer's QKV, scores, structure bias, context, output and FFN; the
+    graphs read once, the embeddings written once, the weights read once."""
+    F, K = w["feat_dim"], w["pe_dim"]
     d, H, L, dff = w["d_model"], w["n_heads"], w["n_layers"], w["d_ff"]
-    per_graph = (2 * N * F * d + 2 * N * K * d
-                 + L * (2 * N * d * 3 * d + 2 * N * N * d + 2 * N * N * 3 * H
-                        + 2 * N * N * d + 2 * N * d * d
-                        + _mlp_flops([d, dff, d]) * N))
+    ops = n_bytes = 0
+    for N, count in collections.Counter(nodes).items():
+        ops += count * (2 * N * F * d + 2 * N * K * d
+                        + L * (2 * N * d * 3 * d + 2 * N * N * d
+                               + 2 * N * N * 3 * H + 2 * N * N * d
+                               + 2 * N * d * d + _mlp_flops([d, dff, d]) * N))
+        n_bytes += count * ((N * F + N * K + N * N * 3) * 4 + N + d * 4)
     params = (F * d + d + K * d + d
               + L * (d * 3 * d + 3 * d + d * d + d + 3 * H + 4 * d
                      + _mlp_params([d, dff, d])))
-    n_bytes = graphs * ((N * F + N * K + N * N * 3) * 4 + N + d * 4) \
-        + params * 4
-    return bound_s(n_bytes, graphs * per_graph)
+    return bound_s(n_bytes + params * 4, ops)
 
 
 def head_bound_s(rows: int, w: dict) -> float:

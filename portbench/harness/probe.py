@@ -15,6 +15,7 @@ originals back in :meth:`Probe.remove`.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import time
 from typing import Dict, List
 
@@ -112,9 +113,19 @@ class Probe:
             n0 = len(cache)
             embed_many(pairs)
             return len(cache) - n0
+
+        def embedded_nodes(a, kw, out):
+            # The memo keeps insertion order, so the call's graphs are its
+            # last ``out`` keys, (id(query), qid, sq_id, kind): O(graphs
+            # embedded), and nothing when the call embedded none.
+            if not out:
+                return {"nodes": []}
+            new = list(itertools.islice(reversed(cache), out))[::-1]
+            queries = {id(q): q for q, _ in a[0]}
+            return {"nodes": [len(queries[k[0]].subqs[k[2]].op_ids)
+                              for k in new]}
         self._patch(model, "embed_many", self._timed(
-            "embed_many", embed_counted,
-            lambda a, kw, out: {"graphs": out}))
+            "embed_many", embed_counted, embedded_nodes))
         self._patch(model, "predict_rows", self._timed(
             "predict_rows", model.predict_rows,
             lambda a, kw, out: {"rows": int(np.shape(a[1])[0])}))

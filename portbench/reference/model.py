@@ -3,8 +3,11 @@
 Works out again, from a query's attributes and the benchmark's weights:
 
 * the per-subQ operator graph (one-hot type, log cardinalities, hashed
-  predicate tokens, Laplacian positional encoding, edge flags), padded to
-  4 nodes, as the subQ and QS models read it (paper §4.3);
+  predicate tokens, Laplacian positional encoding, edge flags) at its own
+  operator count, as the subQ and QS models read it (paper §4.3); a block
+  of graphs is padded to its largest, the padding masked out of the
+  attention's keys and the pooling, so an embedding does not depend on the
+  block or the padding;
 * the GTN embedding (2 layers of biased multi-head attention, mean-pooled)
   and the MLP head, in any dtype and on any device: float64 on the host
   is the reference, float32 on the card with TF32 matmuls the control;
@@ -87,7 +90,7 @@ def resource_rate(tc_raw: np.ndarray) -> np.ndarray:
 # ---------------------------------------------------------------------------
 OP_TYPES = ["scan", "filter", "project", "join", "agg", "sort", "exchange",
             "limit", "expand", "window"]
-PRED_DIM, LAPPE_K, N_PAD = 8, 4, 4
+PRED_DIM, LAPPE_K = 8, 4
 FEAT_DIM = len(OP_TYPES) + 2 + PRED_DIM
 
 
@@ -115,13 +118,19 @@ def _lap_pe(A: np.ndarray) -> np.ndarray:
     return out
 
 
-def subq_graph(query, sq_id: int, use_est: bool):
-    """(X (4, F), pe (4, K), bias (4, 4, 3), mask (4,)) of one subQ."""
+def subq_graph(query, sq_id: int, use_est: bool,
+               n_pad: Optional[int] = None):
+    """(X (N, F), pe (N, K), bias (N, N, 3), mask (N,)) of one subQ: N is
+    its operator count, or ``n_pad`` where given (padding masked out)."""
     sq = query.subqs[sq_id]
     ops = [query.ops[i] for i in sq.op_ids]
     local = {op.op_id: j for j, op in enumerate(ops)}
     n = len(ops)
-    X = np.zeros((N_PAD, FEAT_DIM), np.float32)
+    N = n if n_pad is None else int(n_pad)
+    if N < n:
+        raise ValueError(f"subQ {sq_id} of {query.qid} has {n} operators, "
+                         f"more than n_pad={N}")
+    X = np.zeros((N, FEAT_DIM), np.float32)
     for i, op in enumerate(ops):
         X[i, OP_TYPES.index(op.op_type)] = 1.0
         rows = op.est_rows if use_est else op.rows
@@ -136,14 +145,29 @@ def subq_graph(query, sq_id: int, use_est: bool):
         for c in op.children:
             if c in local:
                 A[local[c], local[op.op_id]] = 1.0
-    pe = np.zeros((N_PAD, LAPPE_K), np.float32)
+    pe = np.zeros((N, LAPPE_K), np.float32)
     pe[:n] = _lap_pe(A)
-    bias = np.zeros((N_PAD, N_PAD, 3), np.float32)
+    bias = np.zeros((N, N, 3), np.float32)
     bias[:n, :n, 0] = A
     bias[:n, :n, 1] = A.T
     bias[range(n), range(n), 2] = 1.0
-    mask = np.zeros(N_PAD, bool)
+    mask = np.zeros(N, bool)
     mask[:n] = True
+    return X, pe, bias, mask
+
+
+def pad_graphs(graphs) -> Tuple[np.ndarray, ...]:
+    """Graphs of any sizes stacked as (X, pe, bias, mask) at the largest
+    one's node count; a graph's added nodes are zeros with mask False."""
+    N = max(g[0].shape[0] for g in graphs)
+    B = len(graphs)
+    X = np.zeros((B, N, FEAT_DIM), np.float32)
+    pe = np.zeros((B, N, LAPPE_K), np.float32)
+    bias = np.zeros((B, N, N, 3), np.float32)
+    mask = np.zeros((B, N), bool)
+    for b, (x, p, e, m) in enumerate(graphs):
+        n = x.shape[0]
+        X[b, :n], pe[b, :n], bias[b, :n, :n], mask[b, :n] = x, p, e, m
     return X, pe, bias, mask
 
 
@@ -234,8 +258,10 @@ class Net:
             + self.p[name + ".b"]
 
     def embed(self, graphs) -> torch.Tensor:
-        X, pe, bias, mask = (np.stack([g[i] for g in graphs])
-                             for i in range(4))
+        """Mean-pooled embeddings of graphs of any sizes (``pad_graphs``):
+        a masked key's logit is -1e9, whose exp underflows to exactly 0,
+        and pooling weighs masked nodes by 0, so padding adds nothing."""
+        X, pe, bias, mask = pad_graphs(graphs)
         X, pe, bias = self._t(X), self._t(pe), self._t(bias)
         mask = torch.as_tensor(mask, device=self.device)
         B, N = X.shape[:2]
@@ -279,11 +305,13 @@ def log_gap(a: np.ndarray, b: np.ndarray) -> float:
 def embeddings(net: Net, keys: Sequence[Tuple[object, int, bool]],
                block: int = 4096) -> Dict[Tuple[int, int, bool], np.ndarray]:
     """Embeddings of (query, sq_id, use_est), keyed by (id(query), sq_id,
-    use_est), computed in blocks of graphs."""
+    use_est), computed in blocks of graphs at their own sizes (sorted by
+    operator count, so a block pads little)."""
     uniq = {}
     for q, i, est in keys:
         uniq.setdefault((id(q), i, est), (q, i, est))
-    items = list(uniq.items())
+    items = sorted(uniq.items(),
+                   key=lambda kv: len(kv[1][0].subqs[kv[1][1]].op_ids))
     out = {}
     for lo in range(0, len(items), block):
         part = items[lo:lo + block]

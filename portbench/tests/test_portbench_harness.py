@@ -248,3 +248,92 @@ def test_a_query_tagged_otherwise_is_refused():
     src = bench_mod.QuerySource("tpch", mod.N_TEMPLATES, mod.make_query)
     with pytest.raises(ValueError, match="tagged 'toy_star'"):
         src.make(0, variant=0, seed=0)
+
+
+def _widths():
+    b = bench_mod.Benchmark()
+    cfg = b.config("tpch")
+    return cell.widths(cfg, cell.model_configs(cfg))
+
+
+def test_gtn_bound_counts_each_graph_at_its_own_nodes():
+    """At four nodes a graph the bound is what it was when every graph was
+    counted at the program's padding of four (the literals); a graph of
+    fewer operators counts less, one of more counts more, and the widths
+    hold no padding."""
+    from portbench.harness.peaks import gtn_bound_s
+    w = _widths()
+    assert "n_pad" not in w
+    assert gtn_bound_s([4], w) == 4.7026865671641794e-08
+    assert gtn_bound_s([4] * 8, w) == 4.864e-08
+    assert gtn_bound_s([4] * 1000, w) == 4.642388059701492e-06
+    assert gtn_bound_s([1, 2, 3] * 300, w) < gtn_bound_s([4] * 900, w) \
+        < gtn_bound_s([7] * 900, w)
+    assert gtn_bound_s([3, 1, 2], w) == gtn_bound_s([1, 2, 3], w)
+
+
+def _host_run(tmp_path, tiny, seed):
+    import time
+    b = _bench_with(tmp_path, queries="toy_star", n_templates=4)
+    out, rec = cell.run(b, "toy.fresh.steady", seed, 3.0, False, "cpu",
+                        time.perf_counter(), overrides=tiny)
+    assert out["correct"], out["checks"]
+    assert out["failed"] == 0
+    return rec
+
+
+def test_embed_many_spans_record_the_nodes_embedded(tmp_path, tiny,
+                                                    monkeypatch):
+    """Each ``embed_many`` span of a host run lists the operator counts of
+    the graphs that call embedded, in order, as the program built them."""
+    from repro_torch.core.models.perf_model import PerfModel
+    calls, building = [], []
+    graph, embed_many = PerfModel._graph, PerfModel.embed_many
+
+    def counted_graph(self, query, sq_id):
+        if building:
+            building[-1].append(len(query.subqs[sq_id].op_ids))
+        return graph(self, query, sq_id)
+
+    def recorded(self, pairs):
+        building.append([])
+        try:
+            return embed_many(self, pairs)
+        finally:
+            calls.append(building.pop())
+    monkeypatch.setattr(PerfModel, "_graph", counted_graph)
+    monkeypatch.setattr(PerfModel, "embed_many", recorded)
+    rec = _host_run(tmp_path, tiny, 2 ** 31 + 5)
+    spans = rec.spans["embed_many"]
+    got = [sp.info["nodes"] for sp in spans]
+    assert got == calls[len(calls) - len(spans):]
+    assert sum(map(sum, got)) > 0 and all(1 <= n <= 4 for g in got
+                                          for n in g)
+
+
+def test_the_yardstick_ignores_the_programs_padding(tmp_path, tiny,
+                                                    monkeypatch):
+    """The same host run with the program padding a stage to four and to
+    eight nodes: correct both times, the same graphs embedded, the same
+    widths and the same GTN bound.  Flushes group by wall time, so the
+    bound is compared over the window's graphs together."""
+    from portbench.harness.peaks import gtn_bound_s
+    from repro_torch.core.models.perf_model import ModelConfig, PerfModel
+    b = bench_mod.Benchmark()
+    cfg = b.config("tpch")
+    q = b.queries(cfg).make(0, variant=0, seed=0)
+    runs = []
+    for pad in (4, 8):
+        if pad != 4:
+            monkeypatch.setattr(ModelConfig, "pad", property(
+                lambda self, p=pad: p if self.kind in ("subq", "qs")
+                else 128))
+        model = PerfModel(cell.model_configs(cfg)["subq"], device="cpu")
+        assert model._graph(q, 0)[0].shape[0] == pad
+        (tmp_path / str(pad)).mkdir()
+        rec = _host_run(tmp_path / str(pad), tiny, 2 ** 31 + 7)
+        nodes = sorted(n for sp in rec.spans["embed_many"]
+                       for n in sp.info["nodes"])
+        runs.append((rec.widths, nodes, gtn_bound_s(nodes, rec.widths)))
+    assert runs[0] == runs[1]
+    assert runs[0][1] and runs[0][2] > 0

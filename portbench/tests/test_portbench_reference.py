@@ -4,6 +4,7 @@ decisions."""
 import numpy as np
 import pytest
 
+from portbench.harness import bench as bench_mod
 from portbench.harness import cell, frozen
 from portbench.reference import decisions as rd
 from portbench.reference import model as rm
@@ -20,16 +21,145 @@ from repro_torch.queryengine.trace import _alpha_stats
 QUERIES = [frozen.make_query(b, t, variant=v)
            for b, n in (("tpch", 22), ("tpcds", 102))
            for t in range(0, n, 9) for v in (0, 5)]
+TEST_QUERIES = bench_mod.ROOT / "portbench" / "tests" / "queries"
+SPEC = bench_mod.query_module("spec_shapes", TEST_QUERIES)
+SPEC_QUERIES = [SPEC.make_query(t, variant=v, seed=2 ** 31 + 11)
+                for t in range(SPEC.N_TEMPLATES) for v in (0, 3)]
 
 
 @pytest.mark.parametrize("use_est", [True, False])
 def test_subq_graph_matches_port(use_est):
     for q in QUERIES:
         for i in range(q.n_subqs):
-            got = rm.subq_graph(q, i, use_est)
+            got = rm.subq_graph(q, i, use_est, n_pad=4)
             want = pf.featurize_subq(q, i, use_est=use_est, n_pad=4)
             for a, b in zip(got, want):
                 assert np.array_equal(a, b)
+
+
+def _local_adjacency(q, i):
+    """The port's rule: an edge child -> parent inside the stage."""
+    ops = q.subq_ops(i)
+    local = {op.op_id: j for j, op in enumerate(ops)}
+    A = np.zeros((len(ops), len(ops)), np.float32)
+    for op in ops:
+        for c in op.children:
+            if c in local:
+                A[local[c], local[op.op_id]] = 1.0
+    return A
+
+
+def test_spec_shapes_have_the_spec_plans_shapes():
+    """The fixture holds what Spark's plans of Q19, Q15 and Q18 hold and
+    the synthetic generators do not."""
+    q19, q15, q18 = SPEC_QUERIES[0], SPEC_QUERIES[2], SPEC_QUERIES[4]
+    assert max(len(sq.op_ids) for sq in q19.subqs) == 7
+    consumers = [sum(s in sq.children for sq in q15.subqs)
+                 for s in range(q15.n_subqs)]
+    assert max(consumers) == 2
+    kinds = [op.op_type for op in q18.ops]
+    assert kinds.count("scan") == 4 and kinds[-2:] == ["sort", "limit"]
+    assert any("semi" in op.pred_tokens for op in q18.ops)
+    mid = [op for op in q18.ops if op.op_type == "filter"
+           and q18.ops[op.children[0]].op_type == "agg"]
+    assert mid and any(sq.children for sq in q18.subqs
+                       if mid[0].op_id in sq.op_ids)
+    assert all(q.benchmark == "spec_shapes" for q in SPEC_QUERIES)
+
+
+@pytest.mark.parametrize("use_est", [True, False])
+def test_features_at_any_size(use_est):
+    """Every subQ of the spec-shaped plans, 1 to 7 operators, at its own
+    size: the port's size-agnostic encoding and PE, the edge flags, no
+    padding; padded on request, never below its size."""
+    sizes = set()
+    for q in SPEC_QUERIES:
+        for i in range(q.n_subqs):
+            X, pe, bias, mask = rm.subq_graph(q, i, use_est)
+            n = len(q.subqs[i].op_ids)
+            sizes.add(n)
+            A = _local_adjacency(q, i)
+            assert np.array_equal(
+                X, pf.encode_ops(q.subq_ops(i), use_est=use_est))
+            assert np.array_equal(pe, pf.lap_positional_encoding(A))
+            assert np.array_equal(bias[..., 0], A)
+            assert np.array_equal(bias[..., 1], A.T)
+            assert np.array_equal(bias[..., 2], np.eye(n))
+            assert mask.shape == (n,) and mask.all()
+            Xp, pep, biasp, maskp = rm.subq_graph(q, i, use_est, n_pad=n + 2)
+            assert np.array_equal(Xp[:n], X) and not Xp[n:].any()
+            assert np.array_equal(pep[:n], pe) and not pep[n:].any()
+            assert np.array_equal(biasp[:n, :n], bias)
+            assert maskp.sum() == n and maskp[:n].all()
+            if n > 1:
+                with pytest.raises(ValueError, match="more than n_pad"):
+                    rm.subq_graph(q, i, use_est, n_pad=n - 1)
+    assert {1, 7} <= sizes
+
+
+def _net(kind="subq"):
+    cfg = cell.model_configs(_cfg())
+    _, host_w = cell.make_weights(cfg, 0, "cpu")
+    return rm.Net(host_w[kind], 4, 2)
+
+
+def _rel(a, b) -> float:
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.max(np.abs(a - b)) / np.max(np.abs(b)))
+
+
+def test_padding_does_not_change_an_embedding():
+    """A block that mixes 1- and 7-operator graphs gives each graph the
+    embedding it has alone at its own size, but for summation order; the
+    same block with its padding left unmasked does not."""
+    net = _net()
+    keys = [(q, i) for q in SPEC_QUERIES for i in range(q.n_subqs)]
+    graphs = [rm.subq_graph(q, i, True) for q, i in keys]
+    assert {g[0].shape[0] for g in graphs} >= {1, 7}
+    mixed = net.embed(graphs).numpy()
+    N = max(g[0].shape[0] for g in graphs)
+    unmasked = [rm.subq_graph(q, i, True, n_pad=N) for q, i in keys]
+    for g in unmasked:
+        g[3][:] = True
+    fault = net.embed(unmasked).numpy()
+    worst_fault = 0.0
+    for j, g in enumerate(graphs):
+        alone = net.embed([g]).numpy()[0]
+        assert _rel(mixed[j], alone) <= 1e-12, keys[j][0].qid
+        if g[0].shape[0] < N:
+            worst_fault = max(worst_fault, _rel(fault[j], alone))
+    assert worst_fault > 1e-3
+    # ``embeddings`` in blocks of three, sorted by size: the same rows.
+    E = rm.embeddings(net, [(q, i, True) for q, i in keys], block=3)
+    for j, (q, i) in enumerate(keys):
+        assert _rel(E[(id(q), i, True)], mixed[j]) <= 1e-12
+
+
+@pytest.mark.parametrize("kind", ["subq", "qs"])
+def test_existing_cells_embeddings_equal_padded_to_four(kind):
+    """On the frozen TPC-H and TPC-DS plans (stages of 1 to 3 operators)
+    the size-agnostic embeddings equal those of graphs padded to four, as
+    the reference computed them before."""
+    net = _net(kind)
+    est = kind == "subq"
+    keys = [(q, i, est) for q in QUERIES for i in range(q.n_subqs)]
+    assert max(len(q.subqs[i].op_ids) for q, i, _ in keys) <= 4
+    E = rm.embeddings(net, keys)
+    four = net.embed([rm.subq_graph(q, i, est, n_pad=4)
+                      for q, i, _ in keys]).numpy()
+    for j, (q, i, _) in enumerate(keys):
+        assert _rel(E[(id(q), i, est)], four[j]) <= 1e-12
+
+
+@pytest.mark.parametrize("template", [0, 1, 2], ids=["q19", "q15", "q18"])
+def test_structure_matches_port_on_spec_shapes(template):
+    """Depths and γ on the spec-shaped DAGs, Q15's two-consumer stage
+    among them."""
+    for q in SPEC_QUERIES[2 * template:2 * template + 2]:
+        d = prt.structural_pressure(q)[1]
+        assert rm._depths(q) == q.subq_depths() == [int(x) for x in d]
+        assert np.array_equal(rm.structural_gamma(q),
+                              prt.structural_gamma(q))
 
 
 def test_alpha_and_gamma_match_port():
