@@ -25,7 +25,7 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import os
-from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -69,6 +69,10 @@ class ModelConfig:
 
 
 TARGET_EPS = 1e-3
+
+# Batch width of a runtime round's GTN dispatches on the card (see
+# ``PerfModel._round_width``); a round with more misses takes several.
+ROUND_WIDTH = 128
 
 
 def pow2_bucket(n: int, lo: int = 64) -> int:
@@ -118,6 +122,40 @@ class _Net(nn.Module):
         fresh ``_Net``.
         """
         return self.head(self.gtn(X, pe, bias, mask), theta, nond)
+
+
+def _zero_padded(a: np.ndarray, width: int) -> np.ndarray:
+    """``a`` with zero rows appended along the batch axis up to ``width``."""
+    if a.shape[0] >= width:
+        return a
+    out = np.zeros((width,) + a.shape[1:], a.dtype)
+    out[:a.shape[0]] = a
+    return out
+
+
+class _GraphedGTN:
+    """The GTN at one input shape on the card, captured once as a CUDA
+    graph.  A call copies its arrays into the graph's inputs, replays it
+    and reads the embeddings back: the kernels and their order are the
+    capture's on every call, so a row's bits depend on that row alone."""
+
+    def __init__(self, gtn: GTN, arrays, device: torch.device):
+        self.inputs = [torch.from_numpy(a).to(device) for a in arrays]
+        # A first run off the capture (cuBLAS handles and workspaces).
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            gtn(*self.inputs)
+        torch.cuda.current_stream(device).wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            self.out = gtn(*self.inputs)
+
+    def __call__(self, arrays) -> np.ndarray:
+        for dst, a in zip(self.inputs, arrays):
+            dst.copy_(torch.from_numpy(a))
+        self.graph.replay()
+        return self.out.cpu().numpy()
 
 
 def _sorted_items(state: Mapping[str, torch.Tensor]):
@@ -184,15 +222,19 @@ class PerfModel:
                                      np.ones(cfg.n_targets)])
         self.target_stats = np.asarray(target_stats, np.float32)
         self._emb_cache: Dict[Any, np.ndarray] = {}
+        # embed_round's CUDA graphs, by input shapes.
+        self._graphs: Dict[tuple, "_GraphedGTN"] = {}
         self._fp: Optional[str] = None
         # Shape buckets seen by the padded batch paths, and the regressor
         # rows sent through predict_rows (padding excluded).
         self.head_buckets: set = set()
         self.embed_buckets: set = set()
         self.rows_predicted = 0
-        # Embedding-memo misses of embed and embed_many (each a GTN pass),
-        # and the arrays _to_dev sent to the device.
+        # Embedding-memo misses of embed, embed_many and embed_round, the
+        # GTN dispatches that embedded them, and the arrays _to_dev sent to
+        # the device.
         self.emb_misses = 0
+        self.emb_dispatches = 0
         self.h2d_copies = 0
         # Per-step training losses, when ``training.train_model`` built it.
         self.train_losses: Optional[np.ndarray] = None
@@ -236,10 +278,27 @@ class PerfModel:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
     @torch.inference_mode()
-    def _embed_batch(self, graphs) -> np.ndarray:
+    def _embed_batch(self, graphs, width: Optional[int] = None) -> np.ndarray:
+        """One GTN dispatch over ``graphs``.
+
+        With ``width`` (:meth:`embed_round`'s), zero graphs (no valid node)
+        fill the batch axis up to it, and on the card the dispatch replays
+        a CUDA graph captured at that shape: one launch for the GTN's ~90
+        kernels, whose launches cost more host time than the card spends.
+        """
+        self.emb_dispatches += 1
         gb = batch_graphs(graphs)
-        emb = self.net.gtn(self._to_dev(gb.X), self._to_dev(gb.pe),
-                           self._to_dev(gb.bias), self._to_dev(gb.mask))
+        arrays = [gb.X, gb.pe, gb.bias, gb.mask]
+        if width is not None:
+            arrays = [_zero_padded(a, width) for a in arrays]
+            if self.device.type == "cuda":
+                self.h2d_copies += len(arrays)
+                shape = tuple(a.shape for a in arrays)
+                if shape not in self._graphs:
+                    self._graphs[shape] = _GraphedGTN(self.net.gtn, arrays,
+                                                      self.device)
+                return self._graphs[shape](arrays)
+        emb = self.net.gtn(*(self._to_dev(a) for a in arrays))
         return emb.cpu().numpy()
 
     def embed(self, query: Query, sq_id: Optional[int] = None) -> np.ndarray:
@@ -258,14 +317,10 @@ class PerfModel:
             tr.close(sp)
         return self._emb_cache[key]
 
-    def embed_many(self, pairs: Sequence[Tuple[Query, Optional[int]]]) -> None:
-        """Fill the embedding cache for many (query, sq_id) pairs at once.
-
-        One padded GTN dispatch replaces the per-subQ batch-of-one calls of
-        :meth:`embed`.  The batch axis is padded to a power-of-two bucket
-        (replicas of the first graph, sliced off afterwards).  Rows are
-        independent: row j of a padded batch is graph j's embedding.
-        """
+    def _misses(self, pairs: Sequence[Tuple[Query, Optional[int]]]
+                ) -> List[Tuple[tuple, tuple]]:
+        """(memo key, graph) of each distinct pair the memo lacks, counted
+        in ``emb_misses``; a pair the memo holds costs one lookup."""
         todo = []
         seen = set()
         for query, sq_id in pairs:
@@ -276,6 +331,17 @@ class PerfModel:
             self.emb_misses += 1
             seen.add(key)
             todo.append((key, self._graph(query, sq_id)))
+        return todo
+
+    def embed_many(self, pairs: Sequence[Tuple[Query, Optional[int]]]) -> None:
+        """Fill the embedding cache for many (query, sq_id) pairs at once.
+
+        One padded GTN dispatch replaces the per-subQ batch-of-one calls of
+        :meth:`embed`.  The batch axis is padded to a power-of-two bucket
+        (replicas of the first graph, sliced off afterwards).  Rows are
+        independent: row j of a padded batch is graph j's embedding.
+        """
+        todo = self._misses(pairs)
         if not todo:
             return
         n = len(todo)
@@ -285,6 +351,45 @@ class PerfModel:
         emb = self._embed_batch(graphs)
         for j, (key, _) in enumerate(todo):
             self._emb_cache[key] = emb[j]
+
+    def _round_width(self, n: int) -> int:
+        """Batch width of :meth:`embed_round`'s dispatches for ``n`` misses.
+
+        On the card one width, whatever ``n``: cuBLAS picks its GEMM kernel
+        by the row count, and the kernels round differently (on an H100 a
+        graph's embedding keeps its bits only within runs of widths such as
+        1–4, 5–12, 15–65, 127–129), and one shape is one CUDA graph.  On
+        the host every power-of-two width gives the same bits, so a lone
+        miss runs alone.
+        """
+        if self.device.type == "cuda":
+            return ROUND_WIDTH
+        return pow2_bucket(n, lo=1)
+
+    def embed_round(self, pairs: Sequence[Tuple[Query, Optional[int]]]
+                    ) -> None:
+        """Fill the embedding cache for a runtime round's pairs.
+
+        The misses run as one GTN dispatch (on the card, one a
+        :data:`ROUND_WIDTH` misses), zero-padded to a width that depends
+        on the device alone, so a graph's embedding never depends on the
+        graphs it shares a dispatch with.  A round without misses makes no
+        dispatch.
+        """
+        todo = self._misses(pairs)
+        if not todo:
+            return
+        tr = tracing.TRACE
+        width = self._round_width(len(todo))
+        for lo in range(0, len(todo), width):
+            chunk = todo[lo:lo + width]
+            if tr is not None:
+                sp = tr.open("model.embed")
+            emb = self._embed_batch([g for _, g in chunk], width)
+            for j, (key, _) in enumerate(chunk):
+                self._emb_cache[key] = emb[j]
+            if tr is not None:
+                tr.close(sp, graphs=len(chunk))
 
     @torch.inference_mode()
     def apply_rows(self, graphs, theta: np.ndarray,

@@ -468,8 +468,11 @@ def score_requests(reqs: Sequence[ScoreRequest]) -> List[np.ndarray]:
     model), model requests by model — and each group resolves in ONE
     ``simulate_stage_rows`` / ``PerfModel.predict`` call over the stacked
     candidate rows of every member: the serving layer's cross-query fusion.
-    Model rows are not bucket-padded: PyTorch runs eagerly, so there is no
-    compiled shape set to bound, and the rows are independent.
+    A model group's GTN embeddings the memo lacks resolve first, in one
+    :meth:`PerfModel.embed_round` dispatch of a width set by the device
+    alone, so a stage's embedding does not depend on the round's other
+    requests.  Model rows are not bucket-padded: PyTorch runs eagerly, so
+    there is no compiled shape set to bound, and the rows are independent.
     """
     out: List[Optional[np.ndarray]] = [None] * len(reqs)
     groups: Dict[tuple, List[int]] = {}
@@ -510,7 +513,13 @@ def _score_oracle_group(reqs: Sequence[ScoreRequest], members: List[int],
 def _score_model_group(reqs: Sequence[ScoreRequest], members: List[int],
                        decision: str,
                        out: List[Optional[np.ndarray]]) -> None:
+    """One model's requests: the group's embedding-memo misses in one
+    :meth:`PerfModel.embed_round` (pairs the memo holds, such as the
+    L̄QP stages the compile-time solve embedded, cost a lookup), then one
+    :meth:`PerfModel.predict` over every member's candidate rows."""
     model = reqs[members[0]].backend.model_for(decision)
+    model.embed_round([(reqs[i].backend.query, reqs[i].subq.sq_id)
+                       for i in members])
     ns = [reqs[i].n for i in members]
     thetas, embs, nonds = [], [], []
     for i, n in zip(members, ns):

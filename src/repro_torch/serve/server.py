@@ -434,8 +434,9 @@ class OptimizerServer:
 
     def counters(self) -> Dict[str, int]:
         """The cumulative counters a trace records deltas of: K1 launches,
-        and the performance models' embedding-memo misses and
-        host-to-device copies (summed over the distinct models)."""
+        and the performance models' embedding-memo misses, the GTN
+        dispatches that embedded them (a round's misses take one a model)
+        and host-to-device copies (summed over the distinct models)."""
         return self._counter_reader()()
 
     def _counter_reader(self):
@@ -452,6 +453,8 @@ class OptimizerServer:
         def read() -> Dict[str, int]:
             return {"k1_launches": pareto_ops.LAUNCHES,
                     "emb_misses": sum([m.emb_misses for m in models]),
+                    "emb_dispatches": sum([m.emb_dispatches
+                                           for m in models]),
                     "h2d_copies": sum([m.h2d_copies for m in models])}
         return read
 

@@ -1120,6 +1120,40 @@ def test_traced_server_counts_every_k1_launch_on_card(cuda_device):
     assert 0 < k1["flush"] <= 2 * solved
 
 
+@pytest.mark.parametrize("kind,theta_dim", [("qs", 10), ("subq", 19)])
+def test_round_embeddings_do_not_depend_on_company_on_card(cuda_device, kind,
+                                                           theta_dim):
+    """``embed_round`` on the card: rounds of 1, 5, 38 and 200 misses
+    (one dispatch each, two for 200, all at ``ROUND_WIDTH`` through one
+    CUDA graph) give every graph the same bits, within float32 rounding of
+    ``embed``'s batch of one."""
+    from repro_torch.core.models.perf_model import ROUND_WIDTH
+    pairs = []
+    for bench, n in (("tpch", 22), ("tpcds", 30)):
+        queries = {id(q): q for q in serving_stream(bench, n, seed=4)}
+        pairs += [(q, i) for q in queries.values() for i in range(q.n_subqs)]
+    rng = np.random.default_rng(0)
+    alone = PerfModel(ModelConfig(kind, theta_dim), seed=2,
+                      device=cuda_device)
+    want = np.stack([alone.embed(q, i) for q, i in pairs])
+    got = []
+    for size in (1, 5, 38, 200):
+        m = PerfModel(ModelConfig(kind, theta_dim), seed=2,
+                      device=cuda_device)
+        order = rng.permutation(len(pairs))
+        for lo in range(0, len(pairs), size):
+            m.embed_round([pairs[j] for j in order[lo:lo + size]])
+        assert m.emb_misses == len(pairs)
+        assert m.emb_dispatches == sum(
+            -(-len(order[lo:lo + size]) // ROUND_WIDTH)
+            for lo in range(0, len(pairs), size))
+        assert len(m._graphs) == 1
+        got.append(np.stack([m.embed(q, i) for q, i in pairs]))
+    for g in got[1:]:
+        np.testing.assert_array_equal(g, got[0])
+    np.testing.assert_allclose(got[0], want, rtol=1e-4, atol=1e-5)
+
+
 def test_fleet_on_card_matches_host(cuda_device, tmp_path):
     from repro_torch.serve import (CacheStore, OptimizerFleet, ServerConfig,
                                    ServiceTimeModel)

@@ -5,8 +5,9 @@ server's paths, on the host.
   answers bit-equal to an untraced one.
 * On: every span lies inside its parent, every served rid sits in one
   ``flush`` span, the counter deltas of the ``flush`` and ``round`` spans
-  add up to what the kernels and models counted over the call, and the
-  embedding memo counts every miss.
+  add up to what the kernels and models counted over the call, a round's
+  embedding misses take one GTN dispatch a model, and the embedding memo
+  counts every miss.
 * A ``torch.profiler`` turns tracing on for the ``serve`` call it records
   and no longer, and ``Trace.offset_ns`` puts the spans on its clock; a
   caller's ``tracing.recording()`` gets the call's spans in its trace.
@@ -42,6 +43,7 @@ PARENTS = {"flush": "serve", "round": "serve", "tune": "flush",
            "hmooc.feed": "tune.phase", "stage_eval.assemble": "stage_eval",
            "stage_eval.dollars": "stage_eval",
            "model.predict_rows": "stage_eval", "round.score": "round",
+           "model.embed": "round.score",
            "round.pick": "round", "round.retire": "round"}
 
 
@@ -153,7 +155,8 @@ def test_every_served_rid_in_one_flush(traced):
 def test_counter_deltas_add_up(traced):
     _, srv, _, before, after = traced
     flushes, rounds = _spans(srv, "flush"), _spans(srv, "round")
-    assert set(after) == {"k1_launches", "emb_misses", "h2d_copies"}
+    assert set(after) == {"k1_launches", "emb_misses", "emb_dispatches",
+                          "h2d_copies"}
     for name in after:
         assert sum(sp.attrs["counters"][name]
                    for sp in flushes + rounds) == \
@@ -165,6 +168,16 @@ def test_counter_deltas_add_up(traced):
     # every model call copies its three arrays.
     assert after["emb_misses"] > before["emb_misses"]
     assert sum(sp.attrs["counters"]["emb_misses"] for sp in rounds) > 0
+    # A round's misses take one GTN dispatch a model with misses (two
+    # models here), each a ``model.embed`` span that counts its graphs.
+    for sp in rounds:
+        c = sp.attrs["counters"]
+        assert (c["emb_misses"] > 0) <= (c["emb_dispatches"] > 0)
+        assert c["emb_dispatches"] <= min(2, c["emb_misses"])
+    assert sum(sp.attrs["counters"]["emb_misses"] for sp in rounds) == \
+        sum(sp.attrs["graphs"] for sp in _spans(srv, "model.embed"))
+    assert sum(sp.attrs["counters"]["emb_dispatches"] for sp in rounds) == \
+        len(_spans(srv, "model.embed"))
     assert sum(sp.attrs["counters"]["h2d_copies"] for sp in flushes) >= \
         3 * len(_spans(srv, "model.predict_rows"))
 
