@@ -70,8 +70,8 @@ class ModelConfig:
 
 TARGET_EPS = 1e-3
 
-# Batch width of a runtime round's GTN dispatches on the card (see
-# ``PerfModel._round_width``); a round with more misses takes several.
+# Batch width of every GTN dispatch on the card (see
+# ``PerfModel._embed_width``); more misses take several dispatches.
 ROUND_WIDTH = 128
 
 
@@ -135,9 +135,10 @@ def _zero_padded(a: np.ndarray, width: int) -> np.ndarray:
 
 class _GraphedGTN:
     """The GTN at one input shape on the card, captured once as a CUDA
-    graph.  A call copies its arrays into the graph's inputs, replays it
-    and reads the embeddings back: the kernels and their order are the
-    capture's on every call, so a row's bits depend on that row alone."""
+    graph.  A call copies its arrays into the graph's inputs with
+    ``to_dev``, replays it and reads the embeddings back: the kernels and
+    their order are the capture's on every call, so a row's bits depend on
+    that row alone."""
 
     def __init__(self, gtn: GTN, arrays, device: torch.device):
         self.inputs = [torch.from_numpy(a).to(device) for a in arrays]
@@ -151,11 +152,16 @@ class _GraphedGTN:
         with torch.cuda.graph(self.graph):
             self.out = gtn(*self.inputs)
 
-    def __call__(self, arrays) -> np.ndarray:
+    def __call__(self, arrays, to_dev) -> np.ndarray:
         for dst, a in zip(self.inputs, arrays):
-            dst.copy_(torch.from_numpy(a))
+            to_dev(a, dst)
         self.graph.replay()
-        return self.out.cpu().numpy()
+        return _to_host(self.out)
+
+
+def _to_host(t: torch.Tensor) -> np.ndarray:
+    """A device tensor read back to the host as numpy."""
+    return t.cpu().numpy()
 
 
 def _sorted_items(state: Mapping[str, torch.Tensor]):
@@ -222,7 +228,7 @@ class PerfModel:
                                      np.ones(cfg.n_targets)])
         self.target_stats = np.asarray(target_stats, np.float32)
         self._emb_cache: Dict[Any, np.ndarray] = {}
-        # embed_round's CUDA graphs, by input shapes.
+        # The GTN's CUDA graphs on the card, by input shapes (one a model).
         self._graphs: Dict[tuple, "_GraphedGTN"] = {}
         self._fp: Optional[str] = None
         # Shape buckets seen by the padded batch paths, and the regressor
@@ -230,9 +236,8 @@ class PerfModel:
         self.head_buckets: set = set()
         self.embed_buckets: set = set()
         self.rows_predicted = 0
-        # Embedding-memo misses of embed, embed_many and embed_round, the
-        # GTN dispatches that embedded them, and the arrays _to_dev sent to
-        # the device.
+        # Embedding-memo misses, the GTN dispatches that embedded them, and
+        # the arrays _to_dev sent to the device.
         self.emb_misses = 0
         self.emb_dispatches = 0
         self.h2d_copies = 0
@@ -273,87 +278,23 @@ class PerfModel:
                                   n_pad=self.cfg.pad)
         return featurize_plan(query, use_est=True, n_pad=self.cfg.pad)
 
-    def _to_dev(self, a: np.ndarray) -> torch.Tensor:
+    def _to_dev(self, a: np.ndarray,
+                out: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``a`` on the model's device, into ``out`` when given (a CUDA
+        graph's input); each call is one copy in ``h2d_copies``."""
         self.h2d_copies += 1
-        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+        a = torch.from_numpy(np.ascontiguousarray(a))
+        if out is None:
+            return a.to(self.device)
+        return out.copy_(a)
 
-    @torch.inference_mode()
-    def _embed_batch(self, graphs, width: Optional[int] = None) -> np.ndarray:
-        """One GTN dispatch over ``graphs``.
+    def _key(self, query: Query, sq_id: Optional[int]) -> tuple:
+        """The embedding memo's key of one (query, stage)."""
+        # repro: allow[RP004] id(query) only scopes the process-local embedding memo to one live Query object (qid alone can recur with different stats); the memo is never snapshotted, only membership is observable and embeddings do not depend on the id value
+        return (id(query), query.qid, sq_id, self.cfg.kind)
 
-        With ``width`` (:meth:`embed_round`'s), zero graphs (no valid node)
-        fill the batch axis up to it, and on the card the dispatch replays
-        a CUDA graph captured at that shape: one launch for the GTN's ~90
-        kernels, whose launches cost more host time than the card spends.
-        """
-        self.emb_dispatches += 1
-        gb = batch_graphs(graphs)
-        arrays = [gb.X, gb.pe, gb.bias, gb.mask]
-        if width is not None:
-            arrays = [_zero_padded(a, width) for a in arrays]
-            if self.device.type == "cuda":
-                self.h2d_copies += len(arrays)
-                shape = tuple(a.shape for a in arrays)
-                if shape not in self._graphs:
-                    self._graphs[shape] = _GraphedGTN(self.net.gtn, arrays,
-                                                      self.device)
-                return self._graphs[shape](arrays)
-        emb = self.net.gtn(*(self._to_dev(a) for a in arrays))
-        return emb.cpu().numpy()
-
-    def embed(self, query: Query, sq_id: Optional[int] = None) -> np.ndarray:
-        """Cached GTN embedding for a subQ group or whole plan."""
-        # repro: allow[RP004] id(query) only scopes the process-local embedding memo to one live Query object (qid alone can recur with different stats); the memo is never snapshotted and embeddings do not depend on the id value
-        key = (id(query), query.qid, sq_id, self.cfg.kind)
-        if key in self._emb_cache:
-            return self._emb_cache[key]
-        self.emb_misses += 1
-        tr = tracing.TRACE
-        if tr is not None:
-            sp = tr.open("model.embed")
-        self._emb_cache[key] = self._embed_batch(
-            [self._graph(query, sq_id)])[0]
-        if tr is not None:
-            tr.close(sp)
-        return self._emb_cache[key]
-
-    def _misses(self, pairs: Sequence[Tuple[Query, Optional[int]]]
-                ) -> List[Tuple[tuple, tuple]]:
-        """(memo key, graph) of each distinct pair the memo lacks, counted
-        in ``emb_misses``; a pair the memo holds costs one lookup."""
-        todo = []
-        seen = set()
-        for query, sq_id in pairs:
-            # repro: allow[RP004] same process-local memo key as `embed` (see above); replay-invariant because only membership is observable, never the id value
-            key = (id(query), query.qid, sq_id, self.cfg.kind)
-            if key in self._emb_cache or key in seen:
-                continue
-            self.emb_misses += 1
-            seen.add(key)
-            todo.append((key, self._graph(query, sq_id)))
-        return todo
-
-    def embed_many(self, pairs: Sequence[Tuple[Query, Optional[int]]]) -> None:
-        """Fill the embedding cache for many (query, sq_id) pairs at once.
-
-        One padded GTN dispatch replaces the per-subQ batch-of-one calls of
-        :meth:`embed`.  The batch axis is padded to a power-of-two bucket
-        (replicas of the first graph, sliced off afterwards).  Rows are
-        independent: row j of a padded batch is graph j's embedding.
-        """
-        todo = self._misses(pairs)
-        if not todo:
-            return
-        n = len(todo)
-        b = pow2_bucket(n, lo=8)
-        graphs = [g for _, g in todo] + [todo[0][1]] * (b - n)
-        self.embed_buckets.add(b)
-        emb = self._embed_batch(graphs)
-        for j, (key, _) in enumerate(todo):
-            self._emb_cache[key] = emb[j]
-
-    def _round_width(self, n: int) -> int:
-        """Batch width of :meth:`embed_round`'s dispatches for ``n`` misses.
+    def _embed_width(self, n: int) -> int:
+        """Batch width of the GTN dispatches that embed ``n`` misses.
 
         On the card one width, whatever ``n``: cuBLAS picks its GEMM kernel
         by the row count, and the kernels round differently (on an H100 a
@@ -366,30 +307,82 @@ class PerfModel:
             return ROUND_WIDTH
         return pow2_bucket(n, lo=1)
 
-    def embed_round(self, pairs: Sequence[Tuple[Query, Optional[int]]]
-                    ) -> None:
-        """Fill the embedding cache for a runtime round's pairs.
+    @torch.inference_mode()
+    def _embed_batch(self, graphs) -> np.ndarray:
+        """One GTN dispatch over ``graphs``.
 
-        The misses run as one GTN dispatch (on the card, one a
-        :data:`ROUND_WIDTH` misses), zero-padded to a width that depends
-        on the device alone, so a graph's embedding never depends on the
-        graphs it shares a dispatch with.  A round without misses makes no
-        dispatch.
+        Zero graphs (no valid node) fill the batch axis up to
+        :meth:`_embed_width`'s width.  On the card the dispatch replays the
+        model's CUDA graph of that shape: one launch for the GTN's ~90
+        kernels, whose launches cost more host time than the card spends.
+        On the host the GTN runs eagerly.
+        """
+        width = self._embed_width(len(graphs))
+        self.emb_dispatches += 1
+        self.embed_buckets.add(width)
+        gb = batch_graphs(graphs)
+        arrays = [_zero_padded(a, width) for a in (gb.X, gb.pe, gb.bias,
+                                                   gb.mask)]
+        if self.device.type != "cuda":
+            return _to_host(self.net.gtn(*map(self._to_dev, arrays)))
+        shape = tuple(a.shape for a in arrays)
+        if shape not in self._graphs:
+            self._graphs[shape] = _GraphedGTN(self.net.gtn, arrays,
+                                              self.device)
+        return self._graphs[shape](arrays, self._to_dev)
+
+    def embed(self, query: Query, sq_id: Optional[int] = None) -> np.ndarray:
+        """Cached GTN embedding for a subQ group or whole plan."""
+        key = self._key(query, sq_id)
+        if key not in self._emb_cache:
+            self._fill([(query, sq_id)])
+        return self._emb_cache[key]
+
+    def _misses(self, pairs: Sequence[Tuple[Query, Optional[int]]]
+                ) -> List[Tuple[tuple, tuple]]:
+        """(memo key, graph) of each distinct pair the memo lacks, counted
+        in ``emb_misses``; a pair the memo holds costs one lookup."""
+        todo = []
+        seen = set()
+        for query, sq_id in pairs:
+            key = self._key(query, sq_id)
+            if key in self._emb_cache or key in seen:
+                continue
+            self.emb_misses += 1
+            seen.add(key)
+            todo.append((key, self._graph(query, sq_id)))
+        return todo
+
+    def _fill(self, pairs: Sequence[Tuple[Query, Optional[int]]]) -> None:
+        """Fill the embedding memo for many (query, sq_id) pairs at once.
+
+        The misses run in GTN dispatches zero-padded to
+        :meth:`_embed_width`'s width (one dispatch on the host, one a
+        :data:`ROUND_WIDTH` misses on the card), so a graph's embedding
+        never depends on the graphs it shares a dispatch with.  Each
+        dispatch is one ``model.embed`` span; pairs without misses make
+        none.
         """
         todo = self._misses(pairs)
         if not todo:
             return
         tr = tracing.TRACE
-        width = self._round_width(len(todo))
+        width = self._embed_width(len(todo))
         for lo in range(0, len(todo), width):
             chunk = todo[lo:lo + width]
             if tr is not None:
                 sp = tr.open("model.embed")
-            emb = self._embed_batch([g for _, g in chunk], width)
+            emb = self._embed_batch([g for _, g in chunk])
             for j, (key, _) in enumerate(chunk):
                 self._emb_cache[key] = emb[j]
             if tr is not None:
                 tr.close(sp, graphs=len(chunk))
+
+    # The compile side's name and a runtime round's: one function.  They
+    # stay two names because the benchmark's harness times the compile side
+    # by wrapping ``embed_many`` on the instance the runtime shares, so a
+    # round must not call it; ``embed`` calls ``_fill`` for the same reason.
+    embed_many = embed_round = _fill
 
     @torch.inference_mode()
     def apply_rows(self, graphs, theta: np.ndarray,
@@ -402,7 +395,7 @@ class PerfModel:
         X, pe, bias, mask = (self._to_dev(a) for a in graphs)
         z = self.net(X, pe, bias, mask, self._to_dev(theta),
                      self._to_dev(nond))
-        return z.cpu().numpy()
+        return _to_host(z)
 
     # -- target transform ------------------------------------------------------
     def to_z(self, y: np.ndarray) -> np.ndarray:
@@ -418,7 +411,7 @@ class PerfModel:
                 nond: np.ndarray) -> np.ndarray:
         z = self.net.head(self._to_dev(emb), self._to_dev(theta),
                           self._to_dev(nond))
-        return z.cpu().numpy()
+        return _to_host(z)
 
     def predict(self, emb: np.ndarray, theta: np.ndarray,
                 nond: np.ndarray) -> np.ndarray:

@@ -1120,38 +1120,46 @@ def test_traced_server_counts_every_k1_launch_on_card(cuda_device):
     assert 0 < k1["flush"] <= 2 * solved
 
 
+@pytest.mark.parametrize("entry", ["embed_many", "embed_round"])
 @pytest.mark.parametrize("kind,theta_dim", [("qs", 10), ("subq", 19)])
 def test_round_embeddings_do_not_depend_on_company_on_card(cuda_device, kind,
-                                                           theta_dim):
-    """``embed_round`` on the card: rounds of 1, 5, 38 and 200 misses
-    (one dispatch each, two for 200, all at ``ROUND_WIDTH`` through one
-    CUDA graph) give every graph the same bits, within float32 rounding of
-    ``embed``'s batch of one."""
+                                                           theta_dim, entry):
+    """``embed_many`` and ``embed_round`` on the card: calls of 1, 5, 38
+    and 200 misses, alternating between the two entries from ``entry``
+    (one dispatch each, two for 200, all at ``ROUND_WIDTH`` through the
+    model's one CUDA graph), give every graph the same bits as ``embed``'s
+    lone misses, and within float32 rounding of the same weights on the
+    host."""
     from repro_torch.core.models.perf_model import ROUND_WIDTH
     pairs = []
     for bench, n in (("tpch", 22), ("tpcds", 30)):
         queries = {id(q): q for q in serving_stream(bench, n, seed=4)}
         pairs += [(q, i) for q in queries.values() for i in range(q.n_subqs)]
     rng = np.random.default_rng(0)
+    entries = (entry, "embed_round" if entry == "embed_many" else "embed_many")
     alone = PerfModel(ModelConfig(kind, theta_dim), seed=2,
                       device=cuda_device)
-    want = np.stack([alone.embed(q, i) for q, i in pairs])
-    got = []
+    lone = np.stack([alone.embed(q, i) for q, i in pairs])
+    assert alone.emb_dispatches == len(pairs) and len(alone._graphs) == 1
+    host = PerfModel(ModelConfig(kind, theta_dim), seed=2, device="cpu")
+    host.embed_many(pairs)
+    want = np.stack([host.embed(q, i) for q, i in pairs])
     for size in (1, 5, 38, 200):
         m = PerfModel(ModelConfig(kind, theta_dim), seed=2,
                       device=cuda_device)
         order = rng.permutation(len(pairs))
-        for lo in range(0, len(pairs), size):
-            m.embed_round([pairs[j] for j in order[lo:lo + size]])
+        for k, lo in enumerate(range(0, len(pairs), size)):
+            getattr(m, entries[k % 2])([pairs[j]
+                                        for j in order[lo:lo + size]])
         assert m.emb_misses == len(pairs)
         assert m.emb_dispatches == sum(
             -(-len(order[lo:lo + size]) // ROUND_WIDTH)
             for lo in range(0, len(pairs), size))
         assert len(m._graphs) == 1
-        got.append(np.stack([m.embed(q, i) for q, i in pairs]))
-    for g in got[1:]:
-        np.testing.assert_array_equal(g, got[0])
-    np.testing.assert_allclose(got[0], want, rtol=1e-4, atol=1e-5)
+        got = np.stack([m.embed(q, i) for q, i in pairs])
+        assert m.emb_misses == len(pairs)
+        np.testing.assert_array_equal(got, lone)
+    np.testing.assert_allclose(lone, want, rtol=1e-4, atol=1e-5)
 
 
 def test_fleet_on_card_matches_host(cuda_device, tmp_path):

@@ -4,8 +4,9 @@
   misses in exactly one dispatch and counts k ``emb_misses``; the L̄QP
   stages the compile-time solve embedded cost a lookup; a round without
   misses makes no dispatch.
-* A round's embeddings are bit-equal to a fresh model's one-at-a-time
-  ``embed`` of the same graphs, in any company and in chunks.
+* A round's embeddings, and a flush's (``embed_many``, the same
+  function), are bit-equal to a fresh model's one-at-a-time ``embed`` of
+  the same graphs, in any company and in chunks.
 * A model-backed ``OptimizerServer.serve`` answers bit-equal to one whose
   rounds embed one graph a dispatch.
 
@@ -112,14 +113,16 @@ def _pairs(bench, n, seed):
     return [(q, i) for q in queries.values() for i in range(q.n_subqs)]
 
 
+@pytest.mark.parametrize("entry", ["embed_many", "embed_round"])
 @pytest.mark.parametrize("bench", sorted(STREAMS))
 @pytest.mark.parametrize("width", [None, 4])
-def test_round_embeddings_bit_equal_to_one_at_a_time(bench, width,
+def test_round_embeddings_bit_equal_to_one_at_a_time(bench, width, entry,
                                                      monkeypatch):
-    """Rounds of 1 to all of the graphs, in shuffled company; ``width`` 4
-    chunks them as the card's fixed width does, here at 4 graphs."""
+    """Rounds of 1 to all of the graphs, in shuffled company, through
+    either entry; ``width`` 4 chunks them as the card's fixed width does,
+    here at 4 graphs."""
     if width is not None:
-        monkeypatch.setattr(PerfModel, "_round_width", lambda self, n: width)
+        monkeypatch.setattr(PerfModel, "_embed_width", lambda self, n: width)
     pairs = _pairs(bench, 10, 5)
     alone = PerfModel(ModelConfig("qs", 10, GTN, (16,)), seed=1, device=CPU)
     want = [alone.embed(q, i) for q, i in pairs]
@@ -131,7 +134,7 @@ def test_round_embeddings_bit_equal_to_one_at_a_time(bench, width,
         chunks = [len(order[lo:lo + size])
                   for lo in range(0, len(pairs), size)]
         for lo in range(0, len(pairs), size):
-            m.embed_round([pairs[j] for j in order[lo:lo + size]])
+            getattr(m, entry)([pairs[j] for j in order[lo:lo + size]])
         assert m.emb_misses == len(pairs)
         assert m.emb_dispatches == sum(-(-c // (width or c)) for c in chunks)
         for (q, i), w in zip(pairs, want):
@@ -141,9 +144,9 @@ def test_round_embeddings_bit_equal_to_one_at_a_time(bench, width,
 
 def test_round_width_is_fixed_on_the_card():
     m = PerfModel(ModelConfig("qs", 10, GTN, (16,)), seed=1, device=CPU)
-    assert [m._round_width(n) for n in (1, 2, 3, 5, 64)] == [1, 2, 4, 8, 64]
+    assert [m._embed_width(n) for n in (1, 2, 3, 5, 64)] == [1, 2, 4, 8, 64]
     m.device = torch.device("cuda")
-    assert {m._round_width(n) for n in (1, 5, 38, 200)} == {ROUND_WIDTH}
+    assert {m._embed_width(n) for n in (1, 5, 38, 200)} == {ROUND_WIDTH}
 
 
 def _serve(bench):

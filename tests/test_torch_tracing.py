@@ -35,7 +35,7 @@ CFG = HMOOCConfig(n_c_init=16, n_clusters=4, n_p_pool=48, n_c_enrich=12,
 CLOCK = ServiceTimeModel(flush_points=((1, 0.05), (4, 0.12), (8, 0.2)),
                          round_s=0.005, cheap_s=0.001)
 # Each span's parent; a degraded request's solve (``_tune_cheap``) runs
-# its stage evaluation straight under ``tune``.
+# its stage evaluation and embeds its stages straight under ``tune``.
 PARENTS = {"flush": "serve", "round": "serve", "tune": "flush",
            "session_admit": "flush", "tune.responses": "tune",
            "tune.embed": "tune", "tune.esets": "tune", "tune.phase": "tune",
@@ -43,7 +43,7 @@ PARENTS = {"flush": "serve", "round": "serve", "tune": "flush",
            "hmooc.feed": "tune.phase", "stage_eval.assemble": "stage_eval",
            "stage_eval.dollars": "stage_eval",
            "model.predict_rows": "stage_eval", "round.score": "round",
-           "model.embed": "round.score",
+           "model.embed": "round.score tune.embed tune.esets tune",
            "round.pick": "round", "round.retire": "round"}
 
 
@@ -90,6 +90,16 @@ def traced(request):
 
 def _spans(srv, name):
     return [sp for sp in srv.last_run.trace.spans if sp.name == name]
+
+
+def _under(srv, sp, name):
+    """Whether ``sp`` lies under a span called ``name``."""
+    spans = srv.last_run.trace.spans
+    while sp.parent >= 0:
+        sp = spans[sp.parent]
+        if sp.name == name:
+            return True
+    return False
 
 
 def test_off_by_default():
@@ -174,10 +184,12 @@ def test_counter_deltas_add_up(traced):
         c = sp.attrs["counters"]
         assert (c["emb_misses"] > 0) <= (c["emb_dispatches"] > 0)
         assert c["emb_dispatches"] <= min(2, c["emb_misses"])
+    embeds = [sp for sp in _spans(srv, "model.embed")
+              if _under(srv, sp, "round")]
     assert sum(sp.attrs["counters"]["emb_misses"] for sp in rounds) == \
-        sum(sp.attrs["graphs"] for sp in _spans(srv, "model.embed"))
+        sum(sp.attrs["graphs"] for sp in embeds)
     assert sum(sp.attrs["counters"]["emb_dispatches"] for sp in rounds) == \
-        len(_spans(srv, "model.embed"))
+        len(embeds)
     assert sum(sp.attrs["counters"]["h2d_copies"] for sp in flushes) >= \
         3 * len(_spans(srv, "model.predict_rows"))
 
