@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
+import itertools
 import os
 from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
@@ -231,11 +232,15 @@ class PerfModel:
         # The GTN's CUDA graphs on the card, by input shapes (one a model).
         self._graphs: Dict[tuple, "_GraphedGTN"] = {}
         self._fp: Optional[str] = None
-        # Shape buckets seen by the padded batch paths, and the regressor
-        # rows sent through predict_rows (padding excluded).
+        # Shape buckets seen by the padded batch paths, the regressor rows
+        # scored by predict_rows and the θ rows it copied to the device
+        # (padding excluded in both).
         self.head_buckets: set = set()
         self.embed_buckets: set = set()
         self.rows_predicted = 0
+        self.theta_rows_sent = 0
+        # predict_rows' host staging buffer (see ``_staging``).
+        self._stage: Optional[torch.Tensor] = None
         # Embedding-memo misses, the GTN dispatches that embedded them, and
         # the arrays _to_dev sent to the device.
         self.emb_misses = 0
@@ -278,11 +283,15 @@ class PerfModel:
                                   n_pad=self.cfg.pad)
         return featurize_plan(query, use_est=True, n_pad=self.cfg.pad)
 
-    def _to_dev(self, a: np.ndarray,
-                out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def _to_dev(self, a, out: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
         """``a`` on the model's device, into ``out`` when given (a CUDA
-        graph's input); each call is one copy in ``h2d_copies``."""
+        graph's input); each call is one copy in ``h2d_copies``.  A tensor
+        ``a`` is a slice of :meth:`_staging`'s buffer and crosses without
+        blocking the host."""
         self.h2d_copies += 1
+        if isinstance(a, torch.Tensor):
+            return a.to(self.device, non_blocking=True)
         a = torch.from_numpy(np.ascontiguousarray(a))
         if out is None:
             return a.to(self.device)
@@ -436,45 +445,120 @@ class PerfModel:
             tr.close(sp, rows=n)
         return out
 
-    def predict_rows(self, emb: np.ndarray, theta: np.ndarray,
-                     nond: np.ndarray) -> np.ndarray:
-        """Like :meth:`predict` but per-row emb/nond, bucket-padded.
+    def _staging(self, nbytes: int) -> torch.Tensor:
+        """The model's host staging buffer, at least ``nbytes`` long.
 
-        The fused solve path concatenates regressor rows from every
-        (query, subQ, candidate) of a micro-batch into one call here.  Rows
-        are zero-padded to a power-of-two bucket, in chunks of at most
-        ``REPRO_HEAD_MAX_BUCKET`` rows.
+        Pinned when bound for the card, reused across calls and grown by
+        doubling when a call needs more.  Its one user, :meth:`predict_rows`,
+        reads its results back before it returns, which waits for the copy
+        out of the buffer, so no copy is in flight when the next call
+        refills it.
+        """
+        buf = self._stage
+        if buf is None or buf.numel() < nbytes:
+            size = max(nbytes, 0 if buf is None else 2 * buf.numel())
+            buf = self._stage = torch.empty(
+                size, dtype=torch.uint8,
+                pin_memory=self.device.type == "cuda")
+        return buf
+
+    @torch.inference_mode()
+    def _gathered_z(self, emb: np.ndarray, rows: np.ndarray,
+                    nond: np.ndarray, theta: np.ndarray,
+                    chunks: List[Tuple[int, int, int]]) -> np.ndarray:
+        """z of the fused form's rows, built on the device by gather.
+
+        The per-request rows (embedding ⊕ nondecision) with a zero row
+        after them, the distinct θ rows with a zero row after them, and
+        each scored row's request and θ index (padding points at the zero
+        rows) fill one staging buffer and cross in one copy.  Each chunk
+        gathers its bucket of rows and runs the head; the call's z is read
+        back once, after its last chunk.
+        """
+        R, d = emb.shape
+        T, td = theta.shape
+        w = d + nond.shape[1]
+        n, n_pad = rows.shape[0], chunks[-1][0] + chunks[-1][2]
+        sizes = ((R + 1) * w * 4, (T + 1) * td * 4, n_pad * 4, n_pad * 4)
+        starts = list(itertools.accumulate((-(-s // 64) * 64 for s in sizes),
+                                           initial=0))
+        buf = self._staging(starts[-1])
+        host = buf.numpy()
+        segs = [host[a:a + s] for a, s in zip(starts, sizes)]
+        req = segs[0].view(np.float32).reshape(R + 1, w)
+        req[:R, :d] = emb
+        req[:R, d:] = nond
+        req[R] = 0
+        th = segs[1].view(np.float32).reshape(T + 1, td)
+        th[:T] = theta
+        th[T] = 0
+        for seg, col, zero in ((segs[2], 0, R), (segs[3], 1, T)):
+            idx = seg.view(np.int32)
+            idx[:n] = rows[:, col]
+            idx[n:] = zero
+        dev = self._to_dev(buf[:starts[-1]])
+        req_d, th_d, ri_d, ti_d = (
+            dev[a:a + s].view(dt) for a, s, dt in zip(
+                starts, sizes, (torch.float32, torch.float32, torch.int32,
+                                torch.int32)))
+        req_d, th_d = req_d.view(R + 1, w), th_d.view(T + 1, td)
+        outs = []
+        for off, c, b in chunks:
+            x = req_d.index_select(0, ri_d[off:off + b])
+            t = th_d.index_select(0, ti_d[off:off + b])
+            z = self.net.head(x[:, :d], t, x[:, d:])
+            outs.append(z[:c])
+        return _to_host(outs[0] if len(outs) == 1 else torch.cat(outs))
+
+    def predict_rows(self, emb: np.ndarray, rows: np.ndarray,
+                     nond: np.ndarray,
+                     theta: Optional[np.ndarray] = None) -> np.ndarray:
+        """Regressor rows → (n, 2) raw targets, in bucket-padded chunks.
+
+        Two forms.  The plain one, ``theta`` None: ``rows`` is the (n, θd)
+        unit θ, and ``emb`` (n, d) and ``nond`` (n, 12) hold one row each;
+        every chunk's three arrays are padded on the host and copied.  The
+        fused one, which the fused solve path (``fused_stage_eval``) sends a
+        micro-batch's (query, subQ, candidate) rows through: ``emb`` (R, d)
+        and ``nond`` (R, 12) hold one row a request, ``theta`` (T, θd) the
+        distinct θ rows, and ``rows`` (n, 2) int32 the (request, θ row) of
+        each row scored; everything crosses in one copy, the rows are built
+        on the device (:meth:`_gathered_z`) and z is read back once.
+
+        Either way the rows are zero-padded to a power-of-two bucket, in
+        chunks of at most ``REPRO_HEAD_MAX_BUCKET`` rows, and the head sees
+        the same values in the same shapes, so both forms give the same
+        bits.  ``rows_predicted`` counts the rows, ``theta_rows_sent`` the
+        θ rows copied (n, or T), ``h2d_copies`` three copies a chunk, or
+        one a call.
         """
         tr = tracing.TRACE
         if tr is not None:
             sp = tr.open("model.predict_rows")
-        emb = np.ascontiguousarray(emb, np.float32)
-        theta = np.ascontiguousarray(theta, np.float32)
-        nond = np.ascontiguousarray(nond, np.float32)
-        n = theta.shape[0]
-        self.rows_predicted += n
+        n = rows.shape[0]
         cap = _head_max_bucket()
-        outs = []
-        for off in range(0, n, cap):
-            e = emb[off:off + cap]
-            t = theta[off:off + cap]
-            d = nond[off:off + cap]
-            c = t.shape[0]
-            # Calls larger than the cap reuse the cap bucket for their tail
-            # too; only calls that fit in one chunk get a smaller bucket.
-            b = cap if n > cap else pow2_bucket(c)
-            if b != c:
-                ep = np.zeros((b, e.shape[1]), np.float32)
-                ep[:c] = e
-                tp = np.zeros((b, t.shape[1]), np.float32)
-                tp[:c] = t
-                dp = np.zeros((b, d.shape[1]), np.float32)
-                dp[:c] = d
-                e, t, d = ep, tp, dp
-            self.head_buckets.add((b, theta.shape[1]))
-            outs.append(self._head_z(e, t, d)[:c])
-        out = self.from_z(outs[0] if len(outs) == 1
-                          else np.concatenate(outs, 0))
+        # Calls larger than the cap reuse the cap bucket for their tail
+        # too; only calls that fit in one chunk get a smaller bucket.
+        b = cap if n > cap else pow2_bucket(n)
+        chunks = [(off, min(cap, n - off), b) for off in range(0, n, cap)]
+        td = rows.shape[1] if theta is None else theta.shape[1]
+        if chunks:
+            self.head_buckets.add((b, td))
+        self.rows_predicted += n
+        if not chunks:
+            z = np.zeros((0, self.cfg.n_targets), np.float32)
+        elif theta is None:
+            self.theta_rows_sent += n
+            arrays = [np.ascontiguousarray(a, np.float32)
+                      for a in (emb, rows, nond)]
+            z = np.concatenate(
+                [self._head_z(*(_zero_padded(a[off:off + c], b)
+                                for a in arrays))[:c]
+                 for off, c, b in chunks], 0)
+        else:
+            self.theta_rows_sent += theta.shape[0]
+            z = self._gathered_z(emb, rows, nond, theta, chunks)
+        out = self.from_z(z)
         if tr is not None:
             tr.close(sp, rows=n)
         return out

@@ -17,7 +17,6 @@ list-structured DAG aggregation (paper §5.1.2).
 """
 from __future__ import annotations
 
-import itertools
 from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -45,12 +44,12 @@ def resource_rate(tc_raw: np.ndarray, cost: CostModel = DEFAULT_COST
 _RATE_COLS = 3
 
 
-def _dollars(pred: np.ndarray, tc_raw: np.ndarray, cost: CostModel
+def _dollars(pred: np.ndarray, rate: np.ndarray, cost: CostModel
              ) -> np.ndarray:
-    """(n, 2) [latency, io] predictions → (n, 2) [latency, cost]."""
+    """(n, 2) [latency, io] predictions and the rows' :func:`resource_rate`
+    → (n, 2) [latency, cost]."""
     lat, io = pred[:, 0], pred[:, 1]
-    return np.stack([lat, lat * resource_rate(tc_raw, cost)
-                     + io * cost.price_io_gb], -1)
+    return np.stack([lat, lat * rate + io * cost.price_io_gb], -1)
 
 
 class StageObjectives:
@@ -156,12 +155,16 @@ StageRequest = Tuple["StageObjectives", int, np.ndarray, np.ndarray]
 def fused_stage_eval(items: Sequence[StageRequest]) -> List[np.ndarray]:
     """Evaluate many stage requests — across subQs *and* queries — at once.
 
-    The model-backed path writes every request's regressor rows (per-row
-    embedding ⊕ θ ⊕ nondecision) into one set of buffers in a single pass
-    for one bucket-padded :meth:`PerfModel.predict_rows` dispatch.  Of the
-    raw values only the three θc columns :func:`resource_rate` reads (k1
-    cores, k2 memory, k3 instances) are converted, once over all rows, and
-    the float64 latency→dollars arithmetic runs over all rows at once when
+    The model-backed path sends each distinct input once, for one
+    bucket-padded :meth:`PerfModel.predict_rows` call in its fused form:
+    each request's embedding and nondecision row, each distinct θ block,
+    and an (n, 2) int32 map of every scored row to its (request, θ row);
+    the regressor rows are built on the device.  A request whose ``Tc`` and
+    ``Tps`` are the previous request's arrays (``is``; a plan's banks-phase
+    requests, one a subQ) reuses that request's θ block.  Of the raw values
+    only the three θc columns :func:`resource_rate` reads (k1 cores, k2
+    memory, k3 instances) are converted, once a distinct θ block, and the
+    float64 latency→dollars arithmetic runs over all rows at once when
     every request shares one :class:`CostModel` (per request otherwise).
     Per-request outputs are identical to calling ``obj.stage_eval(i, Tc,
     Tps)`` one by one: row j of a padded batch equals row j of the
@@ -184,37 +187,56 @@ def fused_stage_eval(items: Sequence[StageRequest]) -> List[np.ndarray]:
         sp_part = tr.open("stage_eval.assemble")
     obj0, i0 = items[0][0], items[0][1]
     d_c = obj0.d_c
-    bounds = list(itertools.accumulate((it[2].shape[0] for it in items),
-                                       initial=0))
-    spans = list(zip(bounds[:-1], bounds[1:]))
-    total = bounds[-1]
-    # Per-row emb/nond are broadcast and θ rows cast straight into the
-    # dispatch buffers — no per-request intermediates on the host.
-    emb_all = np.empty((total, obj0._embs[i0].shape[0]), np.float32)
-    nond_all = np.empty((total, obj0._nond[i0].shape[0]), np.float32)
-    theta_all = np.empty((total, d_c + obj0.d_ps), np.float32)
-    tc_unit = np.empty((total, _RATE_COLS), np.float64)
-    for (obj, i, Tc, Tps), (a, b) in zip(items, spans):
-        emb_all[a:b] = obj._embs[i]
-        nond_all[a:b] = obj._nond[i]
-        theta_all[a:b, :d_c] = Tc
-        theta_all[a:b, d_c:] = Tps
+    R = len(items)
+    lengths = np.fromiter((it[2].shape[0] for it in items), np.int64, R)
+    bounds = np.zeros(R + 1, np.int64)
+    np.cumsum(lengths, out=bounds[1:])
+    total = int(bounds[-1])
+    emb = np.empty((R, obj0._embs[i0].shape[0]), np.float32)
+    nond = np.empty((R, obj0._nond[i0].shape[0]), np.float32)
+    # First θ row of each request's block, and the distinct blocks.
+    first = np.empty(R, np.int64)
+    blocks: List[Tuple[np.ndarray, np.ndarray, int]] = []
+    prev = (None, None)
+    n_theta = 0
+    for k, (obj, i, Tc, Tps) in enumerate(items):
+        emb[k] = obj._embs[i]
+        nond[k] = obj._nond[i]
+        if Tc is not prev[0] or Tps is not prev[1]:
+            blocks.append((Tc, Tps, n_theta))
+            n_theta += Tc.shape[0]
+            prev = (Tc, Tps)
+        first[k] = blocks[-1][2]
+    theta = np.empty((n_theta, d_c + obj0.d_ps), np.float32)
+    tc_unit = np.empty((n_theta, _RATE_COLS), np.float64)
+    for Tc, Tps, a in blocks:
+        b = a + Tc.shape[0]
+        theta[a:b, :d_c] = Tc
+        theta[a:b, d_c:] = Tps
         tc_unit[a:b] = Tc[:, :_RATE_COLS]
     tc_raw = np.empty_like(tc_unit)
     for j, p in enumerate(obj0.cs.params[:_RATE_COLS]):
         tc_raw[:, j] = p.to_raw(tc_unit[:, j])
+    # Row r of request k scores θ row first[k] + (r - bounds[k]).
+    rows = np.empty((total, 2), np.int32, order="F")
+    rows[:, 0] = np.repeat(np.arange(R, dtype=np.int32), lengths)
+    rows[:, 1] = np.arange(total) - np.repeat(bounds[:-1] - first, lengths)
     if tr is not None:
         tr.close(sp_part, rows=total)
-    pred = model.predict_rows(emb_all, theta_all, nond_all)
+    pred = model.predict_rows(emb, rows, nond, theta)
     if tr is not None:
         sp_part = tr.open("stage_eval.dollars")
     cost = obj0.cost
     if all(it[0].cost is cost for it in items):
-        F = _dollars(pred, tc_raw, cost)
-        out = [F[a:b] for a, b in spans]
+        F = _dollars(pred, resource_rate(tc_raw, cost)[rows[:, 1]], cost)
+        out = [F[a:b] for a, b in zip(bounds[:-1], bounds[1:])]
     else:
-        out = [_dollars(pred[a:b], tc_raw[a:b], it[0].cost)
-               for it, (a, b) in zip(items, spans)]
+        out = []
+        for k, (obj, _, Tc, _) in enumerate(items):
+            a, b = bounds[k], bounds[k + 1]
+            rate = resource_rate(tc_raw[first[k]:first[k] + Tc.shape[0]],
+                                 obj.cost)
+            out.append(_dollars(pred[a:b], rate, obj.cost))
     if tr is not None:
         tr.close(sp_part)
         tr.close(sp, requests=len(items))

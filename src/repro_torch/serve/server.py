@@ -435,8 +435,12 @@ class OptimizerServer:
     def counters(self) -> Dict[str, int]:
         """The cumulative counters a trace records deltas of: K1 launches,
         and the performance models' embedding-memo misses, the GTN
-        dispatches that embedded them (a round's misses take one a model)
-        and host-to-device copies (summed over the distinct models)."""
+        dispatches that embedded them (a round's misses take one a model),
+        host-to-device copies, the regressor rows ``predict_rows`` scored
+        and the θ rows it copied to the device (``theta_rows_sent`` over
+        ``rows_predicted`` on a flush is the share of rows the stage
+        evaluation could not deduplicate), summed over the distinct
+        models."""
         return self._counter_reader()()
 
     def _counter_reader(self):
@@ -455,7 +459,11 @@ class OptimizerServer:
                     "emb_misses": sum([m.emb_misses for m in models]),
                     "emb_dispatches": sum([m.emb_dispatches
                                            for m in models]),
-                    "h2d_copies": sum([m.h2d_copies for m in models])}
+                    "h2d_copies": sum([m.h2d_copies for m in models]),
+                    "rows_predicted": sum([m.rows_predicted
+                                           for m in models]),
+                    "theta_rows_sent": sum([m.theta_rows_sent
+                                            for m in models])}
         return read
 
     def _serve(self, requests: Sequence[StreamRequest],

@@ -1162,6 +1162,54 @@ def test_round_embeddings_do_not_depend_on_company_on_card(cuda_device, kind,
     np.testing.assert_allclose(lone, want, rtol=1e-4, atol=1e-5)
 
 
+def _fused_rows_case(n, seed, R=7):
+    """A fused ``predict_rows`` call of n rows over R requests and about
+    n / 5 distinct θ rows, with its plain per-row arrays."""
+    rng = np.random.default_rng(seed)
+    T = max(1, n // 5)
+    emb = rng.standard_normal((R, 48)).astype(np.float32)
+    nond = rng.random((R, 12)).astype(np.float32)
+    theta = rng.random((T, 19)).astype(np.float32)
+    rows = np.stack([rng.integers(0, R, n), rng.integers(0, T, n)],
+                    1).astype(np.int32)
+    plain = (emb[rows[:, 0]], theta[rows[:, 1]], nond[rows[:, 0]])
+    return (emb, rows, nond, theta), plain
+
+
+@pytest.mark.parametrize("n", [1, 8193, 40000])
+def test_fused_predict_rows_equals_plain_on_card(cuda_device, n):
+    """The fused form (one staged copy, rows gathered on the card, one
+    readback) gives the plain per-row form's bits: the head sees the same
+    values in the same chunk shapes."""
+    model = PerfModel(ModelConfig("subq", 19), seed=3, device=cuda_device)
+    fused, plain = _fused_rows_case(n, seed=n)
+    got = model.predict_rows(*fused)
+    assert model.h2d_copies == 1
+    assert model.theta_rows_sent == fused[3].shape[0]
+    want = model.predict_rows(*plain)
+    assert got.shape == want.shape == (n, 2)
+    np.testing.assert_array_equal(got, want)
+    assert model.rows_predicted == 2 * n
+    assert model._stage.is_pinned()
+
+
+def test_fused_predict_rows_reuses_its_staging_on_card(cuda_device):
+    """One model's calls that grow, then shrink, then grow again reuse one
+    pinned buffer (grown by doubling, never shrunk) and give the bits of the
+    same calls on fresh models."""
+    model = PerfModel(ModelConfig("subq", 19), seed=4, device=cuda_device)
+    sizes = []
+    for k, n in enumerate((1, 8193, 40000, 8193, 1, 3000, 40000)):
+        fused, _ = _fused_rows_case(n, seed=100 + k)
+        got = model.predict_rows(*fused)
+        sizes.append(model._stage.numel())
+        fresh = PerfModel(ModelConfig("subq", 19), seed=4,
+                          device=cuda_device)
+        np.testing.assert_array_equal(got, fresh.predict_rows(*fused))
+    assert sizes == sorted(sizes) and sizes[2:] == [sizes[2]] * 5
+    assert model.h2d_copies == 7
+
+
 def test_fleet_on_card_matches_host(cuda_device, tmp_path):
     from repro_torch.serve import (CacheStore, OptimizerFleet, ServerConfig,
                                    ServiceTimeModel)

@@ -1,13 +1,16 @@
-"""``fused_stage_eval``'s one-pass assembly against the per-request one.
+"""``fused_stage_eval``'s staged call against the per-request assembly.
 
-The fused call writes every request's regressor rows into one set of
-buffers and converts only the three θc columns the dollars read.  Each
-case here holds it bit for bit to the assembly it replaced, written out in
-:func:`_per_request_assembly`: per-request ``split_raw`` and
-``theta_rows``, one ``predict_rows`` over the concatenated rows, then the
-dollars request by request.  Port only, on the CPU, with a port
-``PerfModel`` on its seeded random weights.
+The fused call sends each request's embedding and nondecision row once and
+each distinct θ block once (a request whose ``Tc`` and ``Tps`` are the
+previous request's arrays shares its block), builds the regressor rows on
+the device by gather, and converts only the three θc columns the dollars
+read, once a distinct block.  Each case here holds it bit for bit to the
+assembly it replaced, written out in :func:`_per_request_assembly`:
+per-request ``split_raw`` and ``theta_rows``, one plain ``predict_rows``
+over the concatenated rows, then the dollars request by request.  Port
+only, on the CPU, with a port ``PerfModel`` on its seeded random weights.
 """
+import types
 import zlib
 
 import numpy as np
@@ -15,6 +18,7 @@ import pytest
 
 from repro_torch import tracing
 from repro_torch.core.models.perf_model import ModelConfig, PerfModel
+from repro_torch.core.moo.hmooc import _rep_bank_requests
 from repro_torch.core.tuning.objectives import (StageObjectives,
                                                 fused_stage_eval,
                                                 resource_rate)
@@ -182,3 +186,85 @@ def test_fused_assemble_span_counts_rows(objectives):
     assert assemble.attrs == {"rows": total}
     assert outer.attrs == {"requests": len(items)}
     assert assemble.parent == 0 and tr.spans[3].parent == 0
+
+
+def _distinct_theta_rows(items):
+    """θ rows the fused call stages: a request's rows unless its (Tc, Tps)
+    are the previous request's arrays."""
+    n, prev = 0, (None, None)
+    for _, _, Tc, Tps in items:
+        if Tc is not prev[0] or Tps is not prev[1]:
+            n += Tc.shape[0]
+            prev = (Tc, Tps)
+    return n
+
+
+def _plan_banks(obj, rng, C, P):
+    """A plan's banks-phase requests as ``_rep_bank_requests`` makes them:
+    every subQ gets the same (Tc, Tps) arrays."""
+    eset = types.SimpleNamespace(reps=_units(obj, "inside", rng, C, False),
+                                 pool=_units(obj, "inside", rng, P))
+    return [(obj, i, Tc, Tp) for i, Tc, Tp in _rep_bank_requests(obj.m, eset)]
+
+
+def _dedup_case(objectives, model, case, rng):
+    tpch, tpcds = objectives["tpch"], objectives["tpcds"]
+    if case == "rep_banks":
+        return _plan_banks(tpcds[1], rng, 3, 40)
+    if case == "two_plans":
+        # Adjacent plans: equal shapes, their own arrays, so two blocks.
+        return _plan_banks(tpcds[0], rng, 2, 24) \
+            + _plan_banks(tpcds[1], rng, 2, 24)
+    if case == "mixed":
+        # Shared banks, distinct assign rows, banks again, then the first
+        # request once more: only the previous request's arrays are shared,
+        # so its block is staged again.
+        items = _plan_banks(tpch[0], rng, 3, 16)
+        items += _requests(tpcds[:1], "assign", 37, "outside", rng)
+        items += _plan_banks(tpch[1], rng, 1, 5)
+        return items + items[:1]
+    if case == "shared_tc":
+        # One θc array, a θp⊕θs slice a subQ (the set-up default solve).
+        obj = tpcds[0]
+        tc = _units(obj, "inside", rng, 1, False)
+        tps = _units(obj, "inside", rng, obj.m)
+        return [(obj, i, tc, tps[i:i + 1]) for i in range(obj.m)]
+    if case == "mixed_cost":
+        q = make_benchmark("tpcds")[QUERIES["tpcds"][0]]
+        dear = CostModel(price_core_h=0.9, price_mem_gb_h=0.05,
+                         price_io_gb=0.01)
+        cheap = StageObjectives(q, model=model)
+        costly = StageObjectives(q, model=model, cost=dear)
+        banks = _plan_banks(cheap, rng, 2, 12)
+        # The same arrays priced by two cost models: one block, two prices.
+        return banks + [(costly, i, Tc, Tp) for _, i, Tc, Tp in banks] \
+            + _requests([costly], "assign", 9, "half_steps", rng)
+    # "chunked": past the chunk cap, which the test sets to 64 rows.
+    return _plan_banks(tpch[1], rng, 3, 50) \
+        + _requests(tpch[:1], "assign", 70, "inside", rng)
+
+
+@pytest.mark.parametrize("case", ["rep_banks", "two_plans", "mixed",
+                                  "shared_tc", "mixed_cost", "chunked"])
+def test_fused_dedup_matches_per_request_assembly(objectives, model, case,
+                                                  monkeypatch):
+    """Calls whose requests share θ arrays, as a plan's banks phase makes
+    them, stay bit-equal to the per-request assembly; the model copies each
+    distinct θ row once (``theta_rows_sent``), scores every row
+    (``rows_predicted``) and makes one copy to the device a call, however
+    many chunks the rows take."""
+    if case == "chunked":
+        monkeypatch.setenv("REPRO_HEAD_MAX_BUCKET", "64")
+    rng = np.random.default_rng(zlib.crc32(case.encode()))
+    items = _dedup_case(objectives, model, case, rng)
+    total = sum(Tc.shape[0] for _, _, Tc, _ in items)
+    distinct = _distinct_theta_rows(items)
+    assert distinct < total or case == "shared_tc"
+    before = (model.rows_predicted, model.theta_rows_sent, model.h2d_copies)
+    got = fused_stage_eval(items)
+    after = (model.rows_predicted, model.theta_rows_sent, model.h2d_copies)
+    assert np.subtract(after, before).tolist() == [total, distinct, 1]
+    if case == "chunked":
+        assert total > 4 * 64
+        assert model.head_buckets >= {(64, 19)}
+    _assert_equal(got, _per_request_assembly(items))

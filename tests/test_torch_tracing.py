@@ -166,7 +166,7 @@ def test_counter_deltas_add_up(traced):
     _, srv, _, before, after = traced
     flushes, rounds = _spans(srv, "flush"), _spans(srv, "round")
     assert set(after) == {"k1_launches", "emb_misses", "emb_dispatches",
-                          "h2d_copies"}
+                          "h2d_copies", "rows_predicted", "theta_rows_sent"}
     for name in after:
         assert sum(sp.attrs["counters"][name]
                    for sp in flushes + rounds) == \
@@ -190,8 +190,36 @@ def test_counter_deltas_add_up(traced):
         sum(sp.attrs["graphs"] for sp in embeds)
     assert sum(sp.attrs["counters"]["emb_dispatches"] for sp in rounds) == \
         len(embeds)
+    # The stage evaluation's fused call copies its inputs in once.
     assert sum(sp.attrs["counters"]["h2d_copies"] for sp in flushes) >= \
-        3 * len(_spans(srv, "model.predict_rows"))
+        len(_spans(srv, "model.predict_rows"))
+
+
+def test_flush_spans_count_rows_and_theta_rows(traced):
+    """Every ``flush`` span carries the ``rows_predicted`` and
+    ``theta_rows_sent`` deltas: the rows its ``model.predict_rows`` spans
+    scored, and the θ rows copied for them, fewer wherever a plan's subQs
+    shared one θ block (the banks phase); rounds score none."""
+    _, srv, _, _, _ = traced
+    flushes, rounds = _spans(srv, "flush"), _spans(srv, "round")
+    spans = srv.last_run.trace.spans
+    for sp in rounds:
+        c = sp.attrs["counters"]
+        assert c["rows_predicted"] == c["theta_rows_sent"] == 0
+    rows = {i: 0 for i, sp in enumerate(spans) if sp.name == "flush"}
+    for sp in _spans(srv, "model.predict_rows"):
+        up = sp
+        while up.name != "flush":
+            up = spans[up.parent]
+        rows[spans.index(up)] += sp.attrs["rows"]
+    for i, n in rows.items():
+        c = spans[i].attrs["counters"]
+        assert c["rows_predicted"] == n
+        assert 0 <= c["theta_rows_sent"] <= n
+        assert (c["theta_rows_sent"] > 0) == (n > 0)
+    sent = sum(sp.attrs["counters"]["theta_rows_sent"] for sp in flushes)
+    scored = sum(sp.attrs["counters"]["rows_predicted"] for sp in flushes)
+    assert 0 < sent < scored
 
 
 def test_embedding_memo_counts_every_lookup():
@@ -236,12 +264,12 @@ def test_profiler_traces_one_serve_on_its_clock(monkeypatch):
     reqs, specs = _stream("single")
     srv = _server(specs)
     model = srv.tuning.model
-    head_z = model._head_z
+    head = model.net.head
 
     def head_marked(*a):
         with torch.autograd.profiler.record_function("head_probe"):
-            return head_z(*a)
-    monkeypatch.setattr(model, "_head_z", head_marked)
+            return head(*a)
+    monkeypatch.setattr(model.net, "head", head_marked)
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
         srv.serve(reqs[:6])
