@@ -13,8 +13,10 @@ cites.
 
 Two granularities are featurized:
   * whole-plan graphs (the L̄QP model),
-  * per-subQ operator groups (subQ / QS models), padded to a small fixed
-    size — subQ groups contain ≤ 4 operators by construction.
+  * per-subQ operator groups (subQ / QS models), each padded to a node
+    width its caller gives (``PerfModel._graph``: 4 for a stage of at most
+    four operators, as every stage of the synthetic generators is, else
+    the next power of two); a stage wider than its width is refused.
 """
 from __future__ import annotations
 
@@ -121,6 +123,9 @@ class GraphBatch:
 def _build_graph(X: np.ndarray, A: np.ndarray, n_pad: int
                  ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
     n = X.shape[0]
+    if n > n_pad:
+        raise ValueError(f"a graph of {n} operators does not fit a node "
+                         f"width of {n_pad}")
     pe = lap_positional_encoding(A)
     Xp = np.zeros((n_pad, X.shape[1]), np.float32)
     Xp[:n] = X
@@ -137,7 +142,8 @@ def _build_graph(X: np.ndarray, A: np.ndarray, n_pad: int
 
 def featurize_subq(query: Query, sq_id: int, *, use_est: bool,
                    n_pad: int = 4) -> Tuple[np.ndarray, ...]:
-    """Per-subQ operator-group graph (local ids, local edges)."""
+    """Per-subQ operator-group graph (local ids, local edges), padded to
+    ``n_pad`` nodes; a stage of more operators raises ``ValueError``."""
     sq = query.subqs[sq_id]
     ops = [query.ops[i] for i in sq.op_ids]
     local = {op.op_id: j for j, op in enumerate(ops)}

@@ -39,13 +39,20 @@ from .features import batch_graphs, featurize_plan, featurize_subq
 from .gtn import GTN, GTNConfig
 from .nn import MLP, disable_tf32
 
-__all__ = ["ModelConfig", "PerfModel", "NONDECISION_DIM", "pow2_bucket",
-           "make_nondecision", "params_from_reference"]
+__all__ = ["ModelConfig", "PerfModel", "NONDECISION_DIM", "NARROW_WIDTH",
+           "node_width", "pow2_bucket", "make_nondecision",
+           "params_from_reference"]
 
 ALPHA_DIM = 5
 BETA_DIM = 3
 GAMMA_DIM = 4
 NONDECISION_DIM = ALPHA_DIM + BETA_DIM + GAMMA_DIM
+
+
+# The node width of a stage of at most four operators, as every stage of
+# the synthetic generators is; misses embedded wider count in
+# ``PerfModel.emb_wide_misses``.
+NARROW_WIDTH = 4
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,7 +69,10 @@ class ModelConfig:
 
     @property
     def pad(self) -> int:
-        return 4 if self.kind in ("subq", "qs") else 128
+        """The least node width of the model's graphs: a subQ or QS graph
+        of ``n`` operators is padded to ``node_width(n, pad)``; the
+        whole-plan graph of ``lqp`` to 128."""
+        return NARROW_WIDTH if self.kind in ("subq", "qs") else 128
 
     @property
     def use_est(self) -> bool:
@@ -84,6 +94,12 @@ def pow2_bucket(n: int, lo: int = 64) -> int:
     however request sizes vary.
     """
     return max(lo, 1 << (max(n, 1) - 1).bit_length())
+
+
+def node_width(n: int, least: int = NARROW_WIDTH) -> int:
+    """The node width a stage graph of ``n`` operators is padded to:
+    ``least``, or the next power of two ≥ ``n`` when that is larger."""
+    return max(least, pow2_bucket(n, lo=1))
 
 
 def _head_max_bucket() -> int:
@@ -229,7 +245,8 @@ class PerfModel:
                                      np.ones(cfg.n_targets)])
         self.target_stats = np.asarray(target_stats, np.float32)
         self._emb_cache: Dict[Any, np.ndarray] = {}
-        # The GTN's CUDA graphs on the card, by input shapes (one a model).
+        # The GTN's CUDA graphs on the card, by input shapes (one a node
+        # width, captured on the width's first miss).
         self._graphs: Dict[tuple, "_GraphedGTN"] = {}
         self._fp: Optional[str] = None
         # Shape buckets seen by the padded batch paths, the regressor rows
@@ -241,9 +258,11 @@ class PerfModel:
         self.theta_rows_sent = 0
         # predict_rows' host staging buffer (see ``_staging``).
         self._stage: Optional[torch.Tensor] = None
-        # Embedding-memo misses, the GTN dispatches that embedded them, and
-        # the arrays _to_dev sent to the device.
+        # Embedding-memo misses, those embedded at a node width above
+        # NARROW_WIDTH, the GTN dispatches that embedded them, and the
+        # arrays _to_dev sent to the device.
         self.emb_misses = 0
+        self.emb_wide_misses = 0
         self.emb_dispatches = 0
         self.h2d_copies = 0
         # Per-step training losses, when ``training.train_model`` built it.
@@ -278,9 +297,13 @@ class PerfModel:
 
     # -- inference -----------------------------------------------------------
     def _graph(self, query: Query, sq_id: Optional[int]):
+        """The graph of one stage (or of the whole plan, ``lqp``).  A stage
+        of ``n`` operators takes the node width ``node_width(n, cfg.pad)``:
+        4 up to four operators, 8 up to eight, 16 up to sixteen."""
         if self.cfg.kind in ("subq", "qs"):
+            n = len(query.subqs[sq_id].op_ids)
             return featurize_subq(query, sq_id, use_est=self.cfg.use_est,
-                                  n_pad=self.cfg.pad)
+                                  n_pad=node_width(n, self.cfg.pad))
         return featurize_plan(query, use_est=True, n_pad=self.cfg.pad)
 
     def _to_dev(self, a, out: Optional[torch.Tensor] = None
@@ -303,14 +326,15 @@ class PerfModel:
         return (id(query), query.qid, sq_id, self.cfg.kind)
 
     def _embed_width(self, n: int) -> int:
-        """Batch width of the GTN dispatches that embed ``n`` misses.
+        """Batch width of the GTN dispatches that embed ``n`` misses of
+        one node width.
 
-        On the card one width, whatever ``n``: cuBLAS picks its GEMM kernel
-        by the row count, and the kernels round differently (on an H100 a
-        graph's embedding keeps its bits only within runs of widths such as
-        1–4, 5–12, 15–65, 127–129), and one shape is one CUDA graph.  On
-        the host every power-of-two width gives the same bits, so a lone
-        miss runs alone.
+        On the card one batch width, whatever ``n``: cuBLAS picks its GEMM
+        kernel by the row count, and the kernels round differently (on an
+        H100 a graph's embedding keeps its bits only within runs of widths
+        such as 1–4, 5–12, 15–65, 127–129), and one shape is one CUDA graph
+        a node width.  On the host every power-of-two width gives the same
+        bits, so a lone miss runs alone.
         """
         if self.device.type == "cuda":
             return ROUND_WIDTH
@@ -318,13 +342,13 @@ class PerfModel:
 
     @torch.inference_mode()
     def _embed_batch(self, graphs) -> np.ndarray:
-        """One GTN dispatch over ``graphs``.
+        """One GTN dispatch over ``graphs``, all of one node width.
 
         Zero graphs (no valid node) fill the batch axis up to
         :meth:`_embed_width`'s width.  On the card the dispatch replays the
-        model's CUDA graph of that shape: one launch for the GTN's ~90
-        kernels, whose launches cost more host time than the card spends.
-        On the host the GTN runs eagerly.
+        model's CUDA graph of that shape, captured on its first use: one
+        launch for the GTN's ~90 kernels, whose launches cost more host
+        time than the card spends.  On the host the GTN runs eagerly.
         """
         width = self._embed_width(len(graphs))
         self.emb_dispatches += 1
@@ -365,27 +389,36 @@ class PerfModel:
     def _fill(self, pairs: Sequence[Tuple[Query, Optional[int]]]) -> None:
         """Fill the embedding memo for many (query, sq_id) pairs at once.
 
-        The misses run in GTN dispatches zero-padded to
-        :meth:`_embed_width`'s width (one dispatch on the host, one a
-        :data:`ROUND_WIDTH` misses on the card), so a graph's embedding
-        never depends on the graphs it shares a dispatch with.  Each
-        dispatch is one ``model.embed`` span; pairs without misses make
+        The misses are grouped by node width (:meth:`_graph`), in the order
+        the widths first occur, and each group runs in GTN dispatches
+        zero-padded to :meth:`_embed_width`'s width (one dispatch on the
+        host, one a :data:`ROUND_WIDTH` misses on the card).  A dispatch
+        holds graphs of one node width at one batch width, so a graph's
+        embedding depends on that graph alone, never on the graphs or
+        widths it shares a call with.  Each dispatch is one ``model.embed``
+        span, with its graphs and its node width; pairs without misses make
         none.
         """
         todo = self._misses(pairs)
         if not todo:
             return
+        groups: Dict[int, List[Tuple[tuple, tuple]]] = {}
+        for item in todo:
+            groups.setdefault(item[1][0].shape[0], []).append(item)
         tr = tracing.TRACE
-        width = self._embed_width(len(todo))
-        for lo in range(0, len(todo), width):
-            chunk = todo[lo:lo + width]
-            if tr is not None:
-                sp = tr.open("model.embed")
-            emb = self._embed_batch([g for _, g in chunk])
-            for j, (key, _) in enumerate(chunk):
-                self._emb_cache[key] = emb[j]
-            if tr is not None:
-                tr.close(sp, graphs=len(chunk))
+        for node_pad, group in groups.items():
+            if node_pad > NARROW_WIDTH:
+                self.emb_wide_misses += len(group)
+            width = self._embed_width(len(group))
+            for lo in range(0, len(group), width):
+                chunk = group[lo:lo + width]
+                if tr is not None:
+                    sp = tr.open("model.embed")
+                emb = self._embed_batch([g for _, g in chunk])
+                for j, (key, _) in enumerate(chunk):
+                    self._emb_cache[key] = emb[j]
+                if tr is not None:
+                    tr.close(sp, graphs=len(chunk), node_pad=node_pad)
 
     # The compile side's name and a runtime round's: one function.  They
     # stay two names because the benchmark's harness times the compile side

@@ -28,7 +28,7 @@ from .features import batch_graphs, featurize_plan, featurize_subq
 from .gtn import GTNConfig
 from .nn import adamw, disable_tf32
 from .perf_model import (TARGET_EPS, ModelConfig, PerfModel, _Net,
-                         make_nondecision)
+                         make_nondecision, node_width)
 
 __all__ = ["RowDataset", "build_dataset", "train_model", "evaluate",
            "Metrics", "train_all_models"]
@@ -61,13 +61,24 @@ def _lqp_pad(traces: TraceSet) -> int:
     return int(np.ceil(mx / 16) * 16)
 
 
+def _subq_pad(traces: TraceSet) -> int:
+    """The node width of the set's largest stage, as ``PerfModel._graph``
+    pads it: 4 when no stage is wider."""
+    return node_width(max((len(sq.op_ids) for q in traces.queries
+                           for sq in q.subqs), default=1))
+
+
 def build_dataset(traces: TraceSet, kind: str, seed: int = 0) -> Tuple[
         RowDataset, ModelConfig]:
-    """Assemble the row dataset + model config for one target kind."""
+    """Assemble the row dataset + model config for one target kind.
+
+    The subQ and QS sets pad every stage graph to one node width, that of
+    the set's largest stage (:func:`_subq_pad`); the GTN masks the padding,
+    so it changes a row's loss by rounding at most."""
     splits = traces.split(seed=seed)
     if kind in ("subq", "qs"):
         use_est = kind == "subq"
-        pad = 4
+        pad = _subq_pad(traces)
         # Distinct graphs: one per (query, subq).
         keys = {}
         glist = []

@@ -469,9 +469,9 @@ def score_requests(reqs: Sequence[ScoreRequest]) -> List[np.ndarray]:
     ``simulate_stage_rows`` / ``PerfModel.predict`` call over the stacked
     candidate rows of every member: the serving layer's cross-query fusion.
     A model group's GTN embeddings the memo lacks resolve first, in one
-    :meth:`PerfModel.embed_round` dispatch of a width set by the device
-    alone, so a stage's embedding does not depend on the round's other
-    requests.  Model rows are not bucket-padded: PyTorch runs eagerly, so
+    :meth:`PerfModel.embed_round` dispatch a node width, of a batch width
+    set by the device alone, so a stage's embedding does not depend on the
+    round's other requests.  Model rows are not bucket-padded: PyTorch runs eagerly, so
     there is no compiled shape set to bound, and the rows are independent.
     """
     out: List[Optional[np.ndarray]] = [None] * len(reqs)

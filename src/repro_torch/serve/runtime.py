@@ -15,8 +15,8 @@ request of each still-active query and fuses them:
   :func:`~repro_torch.queryengine.simulator.simulate_stage_rows` call;
 * same-model requests stack into ONE :meth:`PerfModel.predict` call
   (cached GTN embeddings; the misses of a round resolve in one
-  :meth:`PerfModel.embed_round` dispatch a model, of a width set by the
-  device alone);
+  :meth:`PerfModel.embed_round` dispatch a model and node width, of a
+  batch width set by the device alone);
 * every pick resolves through
   :func:`~repro_torch.core.tuning.runtime.weighted_pick_batch`, which
   routes dominance filtering and weighted-sum scoring to the CUDA

@@ -434,8 +434,10 @@ class OptimizerServer:
 
     def counters(self) -> Dict[str, int]:
         """The cumulative counters a trace records deltas of: K1 launches,
-        and the performance models' embedding-memo misses, the GTN
-        dispatches that embedded them (a round's misses take one a model),
+        and the performance models' embedding-memo misses, those embedded
+        at a node width above four (stages of five operators or more), the
+        GTN dispatches that embedded them (a round's misses take one a
+        model and node width),
         host-to-device copies, the regressor rows ``predict_rows`` scored
         and the θ rows it copied to the device (``theta_rows_sent`` over
         ``rows_predicted`` on a flush is the share of rows the stage
@@ -457,6 +459,8 @@ class OptimizerServer:
         def read() -> Dict[str, int]:
             return {"k1_launches": pareto_ops.LAUNCHES,
                     "emb_misses": sum([m.emb_misses for m in models]),
+                    "emb_wide_misses": sum([m.emb_wide_misses
+                                            for m in models]),
                     "emb_dispatches": sum([m.emb_dispatches
                                            for m in models]),
                     "h2d_copies": sum([m.h2d_copies for m in models]),

@@ -358,7 +358,7 @@ class TuningService:
         if tr is not None:
             tr.close(sp)
         if solved:
-            # -- embedding prefetch: one GTN dispatch for the whole run ----
+            # -- embedding prefetch: one GTN dispatch a node width ---------
             if tr is not None:
                 sp = tr.open("tune.embed")
             pairs = []

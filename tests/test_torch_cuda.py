@@ -1162,6 +1162,89 @@ def test_round_embeddings_do_not_depend_on_company_on_card(cuda_device, kind,
     np.testing.assert_allclose(lone, want, rtol=1e-4, atol=1e-5)
 
 
+def _spec_pairs():
+    """Every stage of TPC-H's own 22 queries as Spark stages them
+    (``portbench/queries/tpch_spec.py``), two variants each: stages of one
+    to seven operators, node widths 4 and 8."""
+    import importlib.util
+    import pathlib
+    path = (pathlib.Path(__file__).resolve().parents[1] / "portbench"
+            / "queries" / "tpch_spec.py")
+    spec = importlib.util.spec_from_file_location("tpch_spec_queries", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    queries = [mod.make_query(t, variant=v, seed=2 ** 31 + 11)
+               for t in range(mod.N_TEMPLATES) for v in (0, 3)]
+    return [(q, i) for q in queries for i in range(q.n_subqs)]
+
+
+@pytest.mark.parametrize("kind,theta_dim", [("qs", 10), ("subq", 19)])
+def test_wide_embeddings_do_not_depend_on_company_on_card(cuda_device, kind,
+                                                          theta_dim):
+    """TPC-H's own stages mixed with the synthetic ones, in calls of 1, 5,
+    38 and 200 misses through both entries: every graph gets the bits of
+    its lone miss whichever node widths share its call, the model captures
+    one CUDA graph a node width (4 and 8) on that width's first miss, and
+    the card stays within float32 rounding of the host."""
+    from repro_torch.core.models.perf_model import ROUND_WIDTH
+    pairs = _spec_pairs()
+    queries = {id(q): q for q in serving_stream("tpch", 22, seed=4)}
+    pairs += [(q, i) for q in queries.values() for i in range(q.n_subqs)]
+    pads = {}
+    for q, i in pairs:
+        n = len(q.subqs[i].op_ids)
+        pads[(id(q), i)] = 4 if n <= 4 else 8
+    assert set(pads.values()) == {4, 8}
+    alone = PerfModel(ModelConfig(kind, theta_dim), seed=2,
+                      device=cuda_device)
+    lone = np.stack([alone.embed(q, i) for q, i in pairs])
+    assert sorted(k[0][1] for k in alone._graphs) == [4, 8]
+    host = PerfModel(ModelConfig(kind, theta_dim), seed=2, device="cpu")
+    host.embed_many(pairs)
+    want = np.stack([host.embed(q, i) for q, i in pairs])
+    rng = np.random.default_rng(1)
+    for size in (1, 5, 38, 200):
+        m = PerfModel(ModelConfig(kind, theta_dim), seed=2,
+                      device=cuda_device)
+        order = rng.permutation(len(pairs))
+        dispatches = 0
+        for k, lo in enumerate(range(0, len(pairs), size)):
+            call = [pairs[j] for j in order[lo:lo + size]]
+            getattr(m, ("embed_many", "embed_round")[k % 2])(call)
+            for p in (4, 8):
+                c = sum(pads[(id(q), i)] == p for q, i in call)
+                dispatches += -(-c // ROUND_WIDTH)
+        assert m.emb_misses == len(pairs) and m.emb_dispatches == dispatches
+        assert m.emb_wide_misses == sum(p == 8 for p in pads.values())
+        assert sorted(k[0][1] for k in m._graphs) == [4, 8]
+        got = np.stack([m.embed(q, i) for q, i in pairs])
+        np.testing.assert_array_equal(got, lone)
+    np.testing.assert_allclose(lone, want, rtol=1e-4, atol=1e-5)
+
+
+def test_synthetic_stream_captures_no_wider_graph_on_card(cuda_device):
+    """A model-backed server on a synthetic stream (stages of one to three
+    operators) captures only the four-node CUDA graph in each model and
+    counts no wide miss: the dispatches of the cells that existed before
+    wide stages."""
+    from repro_torch.serve import OptimizerServer, ServerConfig
+    gtn = GTNConfig(d_model=16, n_heads=2, n_layers=1, d_ff=32)
+    subq = PerfModel(ModelConfig("subq", 19, gtn, (16,)), seed=0,
+                     device=cuda_device)
+    qs = PerfModel(ModelConfig("qs", 10, gtn, (16,)), seed=1,
+                   device=cuda_device)
+    srv = OptimizerServer(
+        config=ServerConfig(max_batch=4),
+        tuning=TuningService(model=subq, cfg=STREAM_CFG, device=cuda_device),
+        session=RuntimeSession(model_subq=subq, model_qs=qs,
+                               device=cuda_device))
+    reqs, _ = _stream_case("single")
+    srv.serve(reqs)
+    for m in (subq, qs):
+        assert m.emb_misses > 0 and m.emb_wide_misses == 0
+        assert [k[0][1] for k in m._graphs] == [4]
+
+
 def _fused_rows_case(n, seed, R=7):
     """A fused ``predict_rows`` call of n rows over R requests and about
     n / 5 distinct θ rows, with its plain per-row arrays."""

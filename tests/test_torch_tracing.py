@@ -165,8 +165,9 @@ def test_every_served_rid_in_one_flush(traced):
 def test_counter_deltas_add_up(traced):
     _, srv, _, before, after = traced
     flushes, rounds = _spans(srv, "flush"), _spans(srv, "round")
-    assert set(after) == {"k1_launches", "emb_misses", "emb_dispatches",
-                          "h2d_copies", "rows_predicted", "theta_rows_sent"}
+    assert set(after) == {"k1_launches", "emb_misses", "emb_wide_misses",
+                          "emb_dispatches", "h2d_copies", "rows_predicted",
+                          "theta_rows_sent"}
     for name in after:
         assert sum(sp.attrs["counters"][name]
                    for sp in flushes + rounds) == \
